@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``. The
+library name carries a hash of its sources, so an edited kernel is
+rebuilt and a stale one never loads. Libraries land in
+``build/scanerf_tpu_torch/`` at the repository root (``.gitignore`` lists
+``build/``) and are built at first use; ``build()`` compiles several at
+once, one ``nvcc`` process per source, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "scanerf_tpu_torch"
+SOURCES = ("sampler", "pack", "fused_render")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
+
+
+def library_path(name: str) -> Path:
+    """Content-addressed path of one kernel library."""
+    h = hashlib.sha256()
+    for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> dict[str, tuple[float, str]]:
+    """Compile the named libraries that are missing, in parallel.
+
+    Returns {name: (seconds, compiler log)} for the ones it built; raises
+    with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, out, time.perf_counter())
+    done, failed = {}, []
+    for name, (proc, tmp, out, t0) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+        done[name] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if missing."""
+    if name not in _loaded:
+        build([name])
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def stream_ptr(t) -> ctypes.c_void_p:
+    """The current CUDA stream of tensor ``t``'s device, for a launch."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,268 @@
+"""Windowed multiresolution hash: index math, the sorted stream, and B2.
+
+Counterpart of ``scanerf_tpu/ops/pallas/hash_encode.py:130-822``. Each
+level's table of H entries is split into NW = H / 512 windows; a point's
+window is a raster cell of the warped [0, 1]^3 tile domain, and its 8
+corner slots are a folded prime-XOR hash inside that window. The
+renderer sorts its (point, tile) rows by window into a ``SortedStream``
+whose 1024-row chunks each lie inside one 32-window block, so that one
+tile's decoder serves a whole chunk.
+
+B2, the stream pack, replaces the Pallas kernel
+``hash_encode.py::_pack_kernel`` (launched by ``_sort_pack_sorted`` at
+hash_encode.py:636). One CUDA block per output chunk
+(``csrc/pack.cu``) copies the chunk's run of the window-sorted columns
+and fills the tail with pad rows. It moves bytes and nothing else, so
+device memory bounds it: 32 bytes read and 36 written per stream row.
+The window sort itself stays ``torch.sort(stable=True)``, like the
+``lax.sort`` before it: a stable sort gives the same order, so the
+stream equals the JAX stream field by field. Point ids are int32 here
+(the TPU kernel carried them as f32, exact only below 2^24).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from scanerf_tpu_torch import _build
+
+PRIMES = (1, 2654435761, 805459861)
+W = 512  # entries per window
+WB = 32  # windows per block
+CHUNK = 1024  # stream rows per chunk
+SUBT = CHUNK // 128  # 128-row subtiles per chunk (rows of ``meta``)
+_MASK32 = 0xFFFFFFFF
+
+
+@functools.cache
+def geometry(H: int):
+    """Window grid for a table of H entries: (NW, NB, (Cx, Cy, Cz))."""
+    if H < W * WB or H & (H - 1):
+        raise ValueError(f"windowed hash needs a power of two >= {W * WB}, got {H}")
+    NW = H // W
+    bits = int(np.log2(NW))
+    return NW, NW // WB, (2 ** ((bits + 2) // 3), 2 ** ((bits + 1) // 3),
+                          2 ** (bits // 3))
+
+
+def expand_warp(u: torch.Tensor) -> torch.Tensor:
+    """Piecewise-linear warp giving the fg octant ~42% of the windows."""
+    lo = u * 0.5
+    mid = 0.125 + (u - 0.25) * 1.5
+    hi = 0.875 + (u - 0.75) * 0.5
+    return torch.where(u < 0.25, lo, torch.where(u < 0.75, mid, hi))
+
+
+def window_id(u: torch.Tensor, H: int) -> torch.Tensor:
+    """Raster window id of points u [N, 3] in [0, 1]^3 -> int32 [N]."""
+    _, _, (cx, cy, cz) = geometry(H)
+    dims = torch.tensor([cx, cy, cz], dtype=u.dtype, device=u.device)
+    c = torch.floor(expand_warp(u) * dims).to(torch.int32)
+    c = torch.minimum(c.clamp_min(0), (dims - 1).to(torch.int32))
+    return (c[..., 0] * cy + c[..., 1]) * cz + c[..., 2]
+
+
+def slot_hash(ix, iy, iz) -> torch.Tensor:
+    """In-window slot [0, 512) of integer corner coords. The uint32 wrap of
+    the reference is done in int64 with a 32-bit mask."""
+    h = ((ix * PRIMES[0]) & _MASK32) ^ ((iy * PRIMES[1]) & _MASK32) \
+        ^ ((iz * PRIMES[2]) & _MASK32)
+    h = h ^ (h >> 9) ^ (h >> 18)
+    return h & (W - 1)
+
+
+_CORNERS = np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
+                    -1).reshape(8, 3)  # x-major: 000 001 ... 111
+
+
+def encode_rows(u, wid, features, resolutions) -> torch.Tensor:
+    """Windowed hash features of rows u [N, 3] in [0, 1]^3 whose window
+    ids ``wid`` [N] index the windows of ``features`` (flat [L, nW*512*F]
+    or [L, nW*512, F], f32 or bf16, widened to f32) -> [N, L*F] f32."""
+    from scanerf_tpu_torch.ops.hash_encode import as_3d
+
+    features = as_3d(features)
+    L, _, F = features.shape
+    wid = wid.to(torch.int64)
+    corners = torch.as_tensor(_CORNERS, device=u.device)
+    cf = corners.to(u.dtype)
+    out = []
+    for lvl in range(L):
+        v = u * (resolutions[lvl].to(u.dtype) - 1.0)
+        bl = torch.floor(v)
+        off = v - bl
+        ic = (bl.to(torch.int64) & _MASK32)[:, None, :] + corners[None]
+        idx = wid[:, None] * W + slot_hash(ic[..., 0], ic[..., 1], ic[..., 2])
+        wgt = torch.prod(cf[None] * off[:, None, :]
+                         + (1 - cf[None]) * (1 - off[:, None, :]), dim=-1)
+        gathered = features[lvl][idx].to(torch.float32)  # [N, 8, F]
+        out.append((wgt[..., None] * gathered).sum(dim=1))
+    return torch.stack(out, dim=1).reshape(u.shape[0], L * F)
+
+
+def hash_encode_windowed_ref(points, features, resolutions) -> torch.Tensor:
+    """Gather implementation of the windowed hash: points [N, 3] in
+    [-2, 2], one tile's features [L, H, F] or flat [L, H*F] (f32 or
+    bf16, widened to f32), resolutions [L, 3] -> [N, L*F] f32."""
+    from scanerf_tpu_torch.ops.hash_encode import as_3d
+
+    u = (points + 2.0) * 0.25
+    return encode_rows(u, window_id(u, as_3d(features).shape[1]), features,
+                       resolutions)
+
+
+@dataclasses.dataclass
+class SortedStream:
+    """Padded, window-sorted row stream (same fields and contents as the
+    JAX ``SortedStream`` with ``inv_full=None``)."""
+
+    pts: torch.Tensor  # [NC, 8, CHUNK] f32: rows u0 u1 u2 widf d0 d1 d2 0
+    meta: torch.Tensor  # [NC, SUBT, 4] i32: (boc, wmin, span, 0) per subtile
+    pidp: torch.Tensor  # [Np] i32 original row index (N for pad rows)
+    visited: torch.Tensor  # [NB] bool: block has rows
+
+
+def padded_size(N: int, H: int, n_tables: int = 1) -> tuple[int, int]:
+    """(Np, NC) after worst-case block alignment."""
+    _, NB, _ = geometry(H)
+    Np = -(-N // CHUNK) * CHUNK + NB * n_tables * CHUNK
+    return Np, Np // CHUNK
+
+
+def _stream_meta(pts: torch.Tensor, NC: int, NW: int) -> torch.Tensor:
+    """Per 128-row subtile: (boc, wmin, span, 0). Sentinel rows (window
+    NW: dead and pad rows) are left out, so an all-sentinel subtile has
+    span 0 and an all-sentinel chunk is skipped by the decode kernel."""
+    widp = pts[:, 3, :].to(torch.int32).reshape(NC, SUBT, 128)
+    real = widp < NW
+    big = torch.full_like(widp, 2**30)
+    wmin = torch.where(real, widp, big).amin(dim=2)
+    wmax = torch.where(real, widp, torch.full_like(widp, -1)).amax(dim=2)
+    span = (wmax - wmin + 1).clamp_min(0)
+    wmin = wmin.clamp_max(NW - 1)
+    boc = torch.div(wmin.amin(dim=1), WB, rounding_mode="floor").clamp(0, NW // WB - 1)
+    return torch.stack([boc[:, None].expand(NC, SUBT), wmin, span,
+                        torch.zeros_like(wmin)], dim=-1).to(torch.int32)
+
+
+def pack_plain(src, pids, desc, NC, pad_wid):
+    """Plain PyTorch version of B2. src [7, N] f32 window-sorted columns
+    (u0 u1 u2 wid d0 d1 d2), pids [N] i32, desc [NC, 2] i32 (source start,
+    real rows) -> pts [NC, 8, CHUNK] f32, pidp [NC*CHUNK] i32."""
+    N = src.shape[1]
+    t = torch.arange(CHUNK, device=src.device)
+    real = t[None, :] < desc[:, 1:2]  # [NC, CHUNK]
+    idx = torch.where(real, desc[:, 0:1] + t[None, :], torch.zeros_like(t))
+    idx = idx.to(torch.int64)
+    pad = torch.tensor([0.5, 0.5, 0.5, float(pad_wid), 0.0, 0.0, 0.0],
+                       device=src.device)
+    cols = torch.where(real[:, None, :], src[:, idx].permute(1, 0, 2),
+                       pad[None, :, None])
+    pts = torch.cat([cols, torch.zeros_like(cols[:, :1])], dim=1)
+    pidp = torch.where(real, pids[idx], torch.full_like(idx, N).to(pids.dtype))
+    return pts, pidp.reshape(NC * CHUNK)
+
+
+def _pack_fn():
+    f = _build.load("pack").scanerf_pack
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] \
+        + [ctypes.c_void_p] * 3
+    return f
+
+
+def pack(src, pids, desc, NC, pad_wid):
+    """B2 wrapper: CPU tensors take ``pack_plain``; CUDA tensors launch
+    the kernel. Same arguments and results as ``pack_plain``."""
+    if src.device.type == "cpu":
+        return pack_plain(src, pids, desc, NC, pad_wid)
+    if src.device.type != "cuda":
+        raise ValueError(f"unsupported device {src.device}")
+    N = src.shape[1]
+    if src.dtype != torch.float32 or src.shape[0] != 7 or not src.is_contiguous():
+        raise ValueError(f"src must be contiguous f32 [7, N], got {src.dtype} {tuple(src.shape)}")
+    if pids.dtype != torch.int32 or tuple(pids.shape) != (N,) or not pids.is_contiguous():
+        raise ValueError("pids must be contiguous int32 [N]")
+    if desc.dtype != torch.int32 or tuple(desc.shape) != (NC, 2) or not desc.is_contiguous():
+        raise ValueError("desc must be contiguous int32 [NC, 2]")
+    if pids.device != src.device or desc.device != src.device:
+        raise ValueError("src, pids and desc must share a device")
+    pts = torch.empty((NC, 8, CHUNK), dtype=torch.float32, device=src.device)
+    pidp = torch.empty((NC * CHUNK,), dtype=torch.int32, device=src.device)
+    P = _build.ptr
+    err = _pack_fn()(P(src), P(pids), P(desc), N, NC, float(pad_wid),
+                     P(pts), P(pidp), _build.stream_ptr(src))
+    _build.check(err, "scanerf_pack")
+    pack.launches += 1
+    return pts, pidp
+
+
+pack.launches = 0
+
+
+def sort_columns(x, dirs, tids, H: int, n_tables: int, dead=None):
+    """Window-sort the rows: returns (src [7, N] f32 sorted columns
+    u0 u1 u2 wid d0 d1 d2, pids [N] i32, ws [N] i32 sorted window ids,
+    NW of the stacked tables)."""
+    NW1, _, _ = geometry(H)
+    NW = NW1 * n_tables
+    u = (x + 2.0) * 0.25
+    wid = window_id(u, H) + tids.to(torch.int32) * NW1
+    if dead is not None:
+        wid = torch.where(dead, torch.full_like(wid, NW), wid)
+    ws, perm = torch.sort(wid, stable=True)
+    pay = torch.cat([u, dirs], dim=1)[perm].t()  # [6, N]
+    src = torch.cat([pay[0:3], ws[None].to(torch.float32), pay[3:6]]).contiguous()
+    return src, perm.to(torch.int32), ws, NW
+
+
+def chunk_descriptors(ws, N: int, H: int, n_tables: int):
+    """Per output chunk (source start, real rows) [NC, 2] i32 and the
+    per-block populations [NB] (a block's rows start on a chunk)."""
+    _, NB1, _ = geometry(H)
+    NB = NB1 * n_tables
+    NW = NB * WB
+    Np, NC = padded_size(N, H, n_tables)
+    dev = ws.device
+    # last query NW+1: dead-sentinel rows count into the last block
+    q = torch.cat([torch.arange(NB, device=dev, dtype=torch.int32) * WB,
+                   torch.tensor([NW + 1], device=dev, dtype=torch.int32)])
+    bounds = torch.searchsorted(ws, q, side="left")
+    pop = bounds[1:] - bounds[:-1]
+    padded = -(-pop // CHUNK) * CHUNK
+    S = torch.cat([torch.zeros(1, dtype=padded.dtype, device=dev),
+                   torch.cumsum(padded, 0)])
+    c0 = torch.arange(NC, device=dev, dtype=torch.int64) * CHUNK
+    b_of_c = (torch.searchsorted(S, c0, side="right") - 1).clamp(0, NB - 1)
+    src_start = (c0 - (S[b_of_c] - bounds[b_of_c])).clamp(0, N)
+    n_real = (S[b_of_c] + pop[b_of_c] - c0).clamp(0, CHUNK)
+    desc = torch.stack([src_start, n_real], dim=1).to(torch.int32).contiguous()
+    return desc, pop
+
+
+def sort_pack_tables(x, dirs, tids, H: int, n_tables: int, dead=None) -> SortedStream:
+    """Multi-table window sort + pad-align of rows x [N, 3] in [-2, 2] with
+    view dirs [N, 3] and table (tile) ids [N]: row i lands in window
+    ``tid * NW + wid``; tile boundaries coincide with block boundaries,
+    so every chunk lies inside one tile's tables. ``dead`` [N] bool sends
+    rows whose outputs are discarded to the sentinel window."""
+    N = x.shape[0]
+    src, pids, ws, NW = sort_columns(x, dirs, tids, H, n_tables, dead)
+    desc, pop = chunk_descriptors(ws, N, H, n_tables)
+    NC = desc.shape[0]
+    pts, pidp = pack(src, pids, desc, NC, NW)
+    return SortedStream(pts=pts, meta=_stream_meta(pts, NC, NW), pidp=pidp,
+                        visited=pop > 0)
+
+
+def unsort_rows(vals: torch.Tensor, pidp: torch.Tensor, N: int) -> torch.Tensor:
+    """Padded-sorted [Np, D] -> original row order [N, D] (pad rows, whose
+    pid is N, land in a dropped extra row)."""
+    out = vals.new_empty((N + 1, vals.shape[1]))
+    out.index_copy_(0, pidp.to(torch.int64), vals)
+    return out[:N]
