@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/, writes a 4-tile scene in the
+Two phases, each driven through the port's entry points with the
+kernels' launch counts set to 0 just before and read just after.
+
+Render (slice 1). Builds the port's CUDA kernels from csrc/, writes a 4-tile scene in the
 reference export layout (16 levels x 2 features, H = 2^21 entries per
 tile, 64^3 occupancy shells, random decoders at the real widths; all
 from a fixed seed), loads it with ``load_scene(device="cuda")`` and
@@ -24,6 +27,22 @@ the kernels and the render's stages with CUDA events, and prints:
   the bound (least time the card could take for the same work);
 - last, ``{"ok": true, "device": {...}}``.
 
+Training (slice 2). bench.py's workload (the synthetic sphere scene, 16
+cameras at 256x256; 2^14 rays a step in 2x2 patches; 128 fg + 128 bg
+samples and a 512-step march; 16 levels x 2 features at H = 2^21, f32;
+a 64^3 occupancy grid) through ``create_field`` -> ``create_train_state``
+-> ``train_step``, rgb-only and the full recipe (warp 1.0 at K=5 with the
+16/8/64 visibility re-render, depth 0.01, smooth 0.001, rho 100): 2 warm-up
+and 5 timed steps of each, training rays/s from the host clock, one
+step's stages from CUDA events, the idle share of a profiled step. Holds
+B5 and B6 against their plain versions on the middle 256 chunks of a
+step's own stream, times them on the whole stream, and holds one
+full-recipe step of 512 rays on the card against the same step on the
+CPU (losses and gradients).
+
+The ``kernels`` line lists B1, B2 and B7 from the render phase and B5,
+B6 from the training phase. Each phase prints its seconds.
+
 Any failed build, launch or comparison ends the script with a non-zero
 exit code before the last line. Without CUDA it exits 1 and prints no
 result.
@@ -31,6 +50,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -168,6 +188,350 @@ class Capture:
             setattr(mod, name, orig)
 
 
+# ---------------------------------------------------------------------------
+# training: one tile's step at bench.py's width
+# ---------------------------------------------------------------------------
+
+TRAIN_CAMS, TRAIN_HW = 16, 256
+TRAIN_KW = dict(num_sample=128, num_bg_sample=128, batch_log2=14, total_step=40000,
+                num_march=512)
+ARMS = {"rgb_only": dict(w_warp=0.0, w_depth=0.0, w_smooth=0.0, rho=0.0),
+        "full_recipe": dict(w_warp=1.0, w_depth=0.01, w_smooth=0.001, rho=100.0,
+                            warp_start=0)}
+WARM_STEPS, TIMED_STEPS = 2, 5
+N_SUB_CHUNKS = 256  # B5/B6 against their plain versions on this many middle chunks
+N_CHECK_RAYS = 512  # the card's step against the CPU's
+MACS = 32 * 64 + 64 * 64 + 7 * 32 + 48 * 64 + 64 * 64 + 3 * 64  # decoder per row
+
+
+def to_device(obj, dev):
+    """A copy of a (nested) dataclass / dict / list of tensors on ``dev``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to(dev, copy=True)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: to_device(getattr(obj, f.name), dev)
+                                           for f in dataclasses.fields(obj)})
+    if isinstance(obj, dict):
+        return {k: to_device(v, dev) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [to_device(v, dev) for v in obj]
+    return obj
+
+
+def train_setup(tc):
+    """bench.py's workload: the synthetic sphere scene (16 cameras at
+    256x256), a field with 16 levels x 2 features at H = 2^21 (f32),
+    resolutions 32 -> 2048, a 64^3 occupancy grid; weights from a seed."""
+    from scanerf_tpu_torch.data.synthetic import make_sphere_dataset
+    from scanerf_tpu_torch.models import field
+    from scanerf_tpu_torch.train import cameras, tile
+
+    imgs, depths, ks, c2ws = make_sphere_dataset(TRAIN_CAMS, TRAIN_HW, TRAIN_HW)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, fs = field.create_field(gen, [-1.0] * 3, [2.0] * 3, log2_hashmap_size=21,
+                                    grid_resolution=(32, 2048), sampler_log2dim=6,
+                                    device="cuda")
+    state = tile.create_train_state(params, fs, TRAIN_CAMS, tc, device="cuda")
+
+    def dev(a):
+        return torch.tensor(a, device="cuda")
+
+    data = tile.TileData(
+        images=dev(imgs), occlusions=torch.ones(imgs.shape[:3], dtype=torch.bool, device="cuda"),
+        cameras=cameras.make_cameras(dev(ks), dev(c2ws)), mono_depths=dev(depths),
+        mono_normals=torch.zeros((*imgs.shape[:3], 3), device="cuda"))
+    return state, data
+
+
+def profiled_idle(fn, label):
+    """Device busy and idle share of one call of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us = {}
+    for ev in prof.events():
+        # device kernels only: a user annotation (the optimizer's step) spans
+        # kernels that are counted already
+        kernel = ev.device_type.name == "CUDA" and not getattr(ev, "is_user_annotation", False)
+        t_us = ev.time_range.elapsed_us() if kernel else 0
+        if t_us > 0:
+            dev_us[ev.name] = dev_us.get(ev.name, 0.0) + t_us
+    busy = sum(dev_us.values()) / 1e3
+    if busy <= 0:
+        print(f"profiled {label}: the profiler recorded no device time (not measured)")
+        return
+    print(f"profiled {label}: {wall:.1f} ms wall, {busy:.1f} ms device busy "
+          f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
+    for name, t_us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {t_us / 1e3:8.3f} ms  {name[:100]}")
+
+
+def rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / a.double().norm().clamp_min(1e-30))
+
+
+def train_phase() -> list[dict]:
+    """Both arms of bench.py's step on the card; B5 and B6 against their
+    plain versions; a 512-ray step on the card against the CPU's."""
+    from scanerf_tpu_torch.models import field
+    from scanerf_tpu_torch.models.decoder import pack_params
+    from scanerf_tpu_torch.ops.kernels import fused_train as ft
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+    from scanerf_tpu_torch.ops.kernels import sampler as sp
+    from scanerf_tpu_torch.train import tile
+
+    counters = {"B1": sp.sample_fused, "B2": hw.pack, "B5": ft.train_fwd, "B6": ft.train_bwd}
+    launches = dict.fromkeys(counters, 0)
+    kept = {}
+    for arm, kw in ARMS.items():
+        t_arm = time.perf_counter()
+        tc = tile.TrainConfig(**TRAIN_KW, **kw)
+        state, data = train_setup(tc)
+        gen = torch.Generator().manual_seed(1)
+        rays_per_step = (2**tc.batch_log2 // TRAIN_CAMS) // 4 * 4 * TRAIN_CAMS
+        p = state.params
+        before = (p.field.features.clone(), pack_params(p.field.decoder).clone(),
+                  p.se3_refine.clone())
+        losses = []
+        for _ in range(WARM_STEPS):
+            state, aux = tile.train_step(state, data, tc, gen, device="cuda")
+            losses.append(aux["total_loss"])
+        # --- the counted main path: the timed steps
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            state, aux = tile.train_step(state, data, tc, gen, device="cuda")
+            losses.append(aux["total_loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        print(f"train {arm}: {TIMED_STEPS} steps of {rays_per_step} rays in {wall * 1e3:.1f} ms: "
+              f"{rays_per_step * TIMED_STEPS / wall:.0f} training rays/s; launches {got}")
+        for k, n in got.items():
+            if n <= 0:
+                fail(f"kernel {k} was not launched on the training path ({arm})")
+            launches[k] += n
+        if not torch.isfinite(torch.stack(losses)).all():
+            fail(f"non-finite loss in the {arm} steps")
+        print(f"train {arm}: " + ", ".join(f"{k} {float(v):.5g}" for k, v in aux.items()
+                                           if v.ndim == 0))
+
+        # --- where a step's time goes: CUDA events at the stage marks
+        events = []
+
+        def hook(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((name, ev))
+
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        state, aux = tile.train_step(state, data, tc, gen, device="cuda", stage_hook=hook)
+        torch.cuda.synchronize()
+        split, prev = {}, start
+        for name, ev in events:
+            split[name] = split.get(name, 0.0) + prev.elapsed_time(ev)
+            prev = ev
+        print(f"stages {arm} (ms, one step): " + json.dumps({k: round(v, 3) for k, v in split.items()})
+              + f" sum {sum(split.values()):.2f}")
+        profiled_idle(lambda: tile.train_step(state, data, tc, gen, device="cuda"),
+                      f"step {arm}")
+        p = state.params
+        after = (p.field.features, pack_params(p.field.decoder), p.se3_refine)
+        for name, a, b in zip(("tables", "decoder", "se3_refine"), before, after):
+            if torch.equal(a, b):
+                fail(f"{name} did not change over the {arm} steps")
+        print(f"phase train {arm}: {time.perf_counter() - t_arm:.1f} s")
+        kept[arm] = (state, data, tc, gen)
+        del before
+    print(f"launches in the counted training steps (both arms, {TIMED_STEPS} steps each): "
+          f"{launches}")
+
+    # --- B5 and B6 inputs from one full-recipe step
+    t_cmp = time.perf_counter()
+    state, data, tc, gen = kept.pop("full_recipe")
+    kept.clear()
+    torch.cuda.empty_cache()
+    rec = {}
+
+    def recorder(name, orig):
+        def rec_fn(*a, **kw):
+            rec.setdefault(name, a)
+            return orig(*a, **kw)
+
+        rec_fn.launches = 0
+        return rec_fn
+
+    saved = (ft.train_fwd, ft.train_bwd)
+    ft.train_fwd, ft.train_bwd = recorder("B5", saved[0]), recorder("B6", saved[1])
+    try:
+        (_, _), _ = tile.compute_grads(state, data, tc, gen)
+    finally:
+        ft.train_fwd, ft.train_bwd = saved
+    pts, meta, table, res, pslab, NW = rec["B5"]
+    pts, table, pslab, g = pts.detach(), table.detach(), pslab.detach(), rec["B6"][6]
+    NC = pts.shape[0]
+    live_c = meta[:, :, 2].sum(dim=1) > 0
+    live, visited = int(live_c.sum()), int(torch.unique(meta[live_c, 0, 0]).numel())
+    print(f"training stream: {NC} chunks, {live} live, {visited} visited blocks")
+    # the kernels against their plain versions on the middle chunks, with
+    # the step's slab and with one packed where BARF weighs every level 1
+    # (at this early step levels 9-15 weigh 0, so their feature cotangents,
+    # table scatter and dL/du are 0 in both versions)
+    c0 = max(NC // 2 - N_SUB_CHUNKS // 2, 0)
+    c1 = min(c0 + N_SUB_CHUNKS, NC)
+    sub = (pts[c0:c1].contiguous(), meta[c0:c1].contiguous())
+    g_sub = g[c0 * hw.CHUNK:c1 * hw.CHUNK].contiguous()
+    slab_all = ft.pack_train_slab(state.params.field.decoder,
+                                  field.weight_feature(torch.tensor(20000.0, device="cuda")))
+    err_b5, err_b6 = [], []
+    for label, slab in (("step slab", pslab), ("all levels", slab_all.detach())):
+        cols_k, feats_k = ft.train_fwd(*sub, table, res, slab, NW)
+        cols_p, feats_p = ft.train_fwd_plain(*sub, table, res, slab, NW)
+        err_b5 += [float((cols_k - cols_p).abs().max()), float((feats_k - feats_p).abs().max())]
+        print(f"B5 {label}, chunks {c0}-{c1}: max |cols| err {err_b5[-2]:.3g} (tol 1e-4), "
+              f"max |feats| err {err_b5[-1]:.3g} (tol 1e-5)")
+        if not (err_b5[-2] <= 1e-4 and err_b5[-1] <= 1e-5 and torch.isfinite(cols_k).all()):
+            fail(f"B5 ({label}) differs from its plain version")
+        dpts_k, dtab_k, dslab_k = ft.train_bwd(*sub, table, res, slab, feats_k, g_sub, NW)
+        dpts_p, dtab_p, dslab_p = ft.train_bwd_plain(*sub, table, res, slab, feats_p, g_sub, NW)
+        if dpts_k[:, 3::4].count_nonzero() or dpts_p[:, 3::4].count_nonzero():
+            fail(f"B6 ({label}) dpts rows 3 and 7 are not zero")
+        # each part against its own largest entry: dL/du (rows 0-2), dL/d
+        # dirs (rows 4-6), the table gradient level by level, the slab's
+        parts = [("dpts u", dpts_k[:, 0:3], dpts_p[:, 0:3]),
+                 ("dpts dirs", dpts_k[:, 4:7], dpts_p[:, 4:7]),
+                 ("d_slab", dslab_k, dslab_p)]
+        parts += [(f"d_tables level {lv}", dtab_k[lv], dtab_p[lv]) for lv in range(LEVELS)]
+        worst = (0.0, "")
+        for name, a, b in parts:
+            scale = float(b.abs().max())
+            e = float((a - b).abs().max())
+            err_b6.append(e)
+            ratio = e / scale if scale > 0 else (0.0 if e == 0 else float("inf"))
+            worst = max(worst, (ratio, name))
+            if label == "all levels" and scale == 0:
+                fail(f"B6 ({label}) {name} is zero in the plain version: the check is empty")
+            if not (torch.isfinite(a).all() and e <= 1e-4 * scale):
+                fail(f"B6 ({label}) {name} differs from its plain version: max err {e:.3g}, "
+                     f"largest entry {scale:.3g} (tol 1e-4 of it)")
+            if not name.startswith("d_tables level") or name.endswith((" 0", " 15")):
+                print(f"B6 {label} {name}: max err {e:.3g}, {ratio:.3g} of its largest "
+                      f"entry {scale:.3g} (tol 1e-4 of it), rel L2 {rel_l2(b, a):.3g}")
+        print(f"B6 {label}: worst part {worst[1]} at {worst[0]:.3g} of its largest entry "
+              f"(tol 1e-4)")
+        del dpts_k, dtab_k, dslab_k, dpts_p, dtab_p, dslab_p, cols_p, feats_p
+    torch.cuda.empty_cache()
+
+    # times on the whole stream of the step
+    _, feats_full = ft.train_fwd(pts, meta, table, res, pslab, NW)
+    rows_b5 = NC * hw.CHUNK
+    tab_bytes = visited * 16 * hw.WB * hw.W * 2 * 4
+    b5_bytes = (pts.numel() * 4 + meta.numel() * 4 + rows_b5 * 8 * 4 + feats_full.numel() * 4
+                + tab_bytes + pslab.numel() * 4)
+    b6_bytes = (pts.numel() * 4 + meta.numel() * 4 + feats_full.numel() * 4 + rows_b5 * 8 * 4
+                + pts.numel() * 4 + tab_bytes + table.numel() * 4 + 2 * pslab.numel() * 4)
+    b5 = dict(name="fused_train_fwd", route="cuda", source="scanerf_tpu_torch/csrc/fused_train.cu",
+              replaces="scanerf_tpu/ops/pallas/fused_train.py:139", launches=launches["B5"],
+              max_abs_err=max(err_b5),
+              ms=timed(lambda: ft.train_fwd(pts, meta, table, res, pslab, NW), 5),
+              plain_ms=timed(lambda: ft.train_fwd_plain(pts, meta, table, res, pslab, NW), 1),
+              bytes=b5_bytes, ops=live * hw.CHUNK * (2 * MACS + 16 * 8 * 6), library_ms=None)
+    torch.cuda.empty_cache()
+    b6 = dict(name="fused_train_bwd", route="cuda", source="scanerf_tpu_torch/csrc/fused_train.cu",
+              replaces="scanerf_tpu/ops/pallas/fused_train.py:222", launches=launches["B6"],
+              max_abs_err=max(err_b6),
+              ms=timed(lambda: ft.train_bwd(pts, meta, table, res, pslab, feats_full, g, NW), 3),
+              plain_ms=timed(lambda: ft.train_bwd_plain(pts, meta, table, res, pslab, feats_full,
+                                                        g, NW), 1),
+              bytes=b6_bytes, ops=live * hw.CHUNK * (6 * MACS + 16 * 8 * 16), library_ms=None)
+    print(f"B5 {b5['ms']:.3f} ms (plain {b5['plain_ms']:.1f}), B6 {b6['ms']:.3f} ms "
+          f"(plain {b6['plain_ms']:.1f}) on the whole stream")
+    del rec, pts, meta, g, feats_full
+    torch.cuda.empty_cache()
+    print(f"phase train kernels: {time.perf_counter() - t_cmp:.1f} s")
+
+    # --- one full-recipe step of 512 rays: the card against the CPU. As in
+    # tests/test_torch_train.py test (g), every compared loss carries
+    # weight: alpha / gamma 0.02 / 1.0 (at 10 / 20 the visibility weights
+    # of this untrained field underflow and the warp loss is ~1e-7), mono
+    # normals that pass the smooth loss's similarity test (bench.py's are
+    # 0) and ADMM variables with overlapping cameras (a fresh state's flags
+    # are all off)
+    t_cpu = time.perf_counter()
+    tc_chk = dataclasses.replace(tc, batch_log2=int(np.log2(N_CHECK_RAYS)), alpha=0.02,
+                                 gamma=1.0)
+    rng = np.random.default_rng(13)
+
+    def small(*shape):
+        return torch.tensor(rng.standard_normal(shape) * 0.01, dtype=torch.float32,
+                            device="cuda")
+
+    normals = np.float32([0.1, 1.0, 0.2]) + rng.standard_normal(
+        (TRAIN_CAMS, TRAIN_HW, TRAIN_HW, 3)).astype(np.float32) * 0.02
+    data = dataclasses.replace(data, mono_normals=torch.tensor(normals, device="cuda"))
+    state = dataclasses.replace(state, admm=tile.AdmmState(
+        shared_se3=small(TRAIN_CAMS, 6), delta_se3=small(TRAIN_CAMS, 6),
+        overlap_flags=torch.arange(TRAIN_CAMS, device="cuda") % 4 != 1, rho=state.admm.rho))
+    ray_idx, locs = tile.sample_patches(torch.Generator().manual_seed(7), TRAIN_HW, TRAIN_HW,
+                                        N_CHECK_RAYS // TRAIN_CAMS // 4)
+    pix = locs[None].expand(TRAIN_CAMS, *locs.shape)
+    cpu_state, cpu_data = to_device(state, "cpu"), to_device(data, "cpu")
+    # the CPU against itself with se3_refine moved by 1e-7 (rays by about
+    # as many ulps as the card's differ from the CPU's)
+    nudge = torch.tensor(rng.standard_normal((TRAIN_CAMS, 6)) * 1e-7, dtype=torch.float32)
+    cpu_nudged = dataclasses.replace(cpu_state, params=tile.TileParams(
+        field=cpu_state.params.field, se3_refine=cpu_state.params.se3_refine + nudge))
+    # test (g)'s tolerances: the step is not continuous in f32 rounding (a
+    # sample on a CDF tie or a window boundary moves when the rays differ
+    # by an ulp, and the card's rays do), and neighbour selection and the
+    # visibility re-render are discontinuous
+    rtol = {"depth_loss": 2e-3, "smooth_loss": 2e-3, "warp_loss": 2e-2}
+    # The full recipe's gradients are the depth loss's (the sky's 1e3 mono
+    # depths), so the warp loss is also held alone: its path (view
+    # selection, projection, the re-render through B1/B2/B5, B6) then
+    # carries the whole gradient.
+    warp_alone = dataclasses.replace(tc_chk, w_rgb=0.0, w_depth=0.0, w_smooth=0.0, rho=0.0)
+    for recipe, tcx, names in (
+            ("full recipe", tc_chk, ("total_loss", "rgb_loss", "depth_loss", "smooth_loss",
+                                     "warp_loss", "admm_loss")),
+            ("warp loss alone", warp_alone, ("total_loss", "warp_loss"))):
+        (_, a_k), g_k = tile.compute_grads(state, data, tcx, ray_idx=ray_idx.cuda(),
+                                           pixel_locs=pix.cuda())
+        (_, a_p), g_p = tile.compute_grads(cpu_state, cpu_data, tcx, ray_idx=ray_idx,
+                                           pixel_locs=pix)
+        (_, _), g_n = tile.compute_grads(cpu_nudged, cpu_data, tcx, ray_idx=ray_idx,
+                                         pixel_locs=pix)
+        for k in names:
+            a, b = float(a_k[k]), float(a_p[k])
+            tol = rtol.get(k, 5e-4) * abs(b)
+            print(f"step parity ({recipe}) {k}: card {a:.7g} cpu {b:.7g} (tol {tol:.3g})")
+            if not b > 1e-4:
+                fail(f"the check's {k} is {b:.3g}, not above 1e-4: it carries no weight")
+            if not (np.isfinite(a) and abs(a - b) <= tol):
+                fail(f"the card's {k} differs from the CPU's ({recipe})")
+        # gradients: test (g)'s limits, or twice the CPU's own change under
+        # the nudge where that is larger
+        for name, floor in (("hash", 2e-2), ("decoder", 2e-2), ("cam", 1e-3)):
+            worst = max(rel_l2(b, a.cpu()) for a, b in zip(g_k[name], g_p[name]))
+            own = max(rel_l2(b, n) for n, b in zip(g_n[name], g_p[name]))
+            tol = max(floor, 2 * own)
+            print(f"step parity ({recipe}) grad {name}: worst relative L2 {worst:.3g} (tol "
+                  f"{tol:.3g}: the larger of {floor} and twice the CPU's own change {own:.3g})")
+            if not worst <= tol:
+                fail(f"the card's {name} gradient differs from the CPU's ({recipe})")
+    print(f"phase train card-vs-cpu: {time.perf_counter() - t_cpu:.1f} s")
+    return [b5, b6]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -192,7 +556,7 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(built)} "
           + " ".join(f"{k}={v[0]:.1f}s" for k, v in built.items()))
@@ -416,6 +780,11 @@ def main() -> None:
                      f"{e} > {tol}")
         if not torch.equal(card["fore_valid"].cpu(), plain["fore_valid"]):
             fail(f"card and CPU renders ({view}) disagree on which rays hit the scene")
+
+    print(f"phase render: {time.perf_counter() - t_start:.1f} s")
+    t1 = time.perf_counter()
+    rows += train_phase()
+    print(f"phase train: {time.perf_counter() - t1:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
     for r in rows:
         t_bytes = r.pop("bytes") / HBM_BYTES_PER_S * 1e3

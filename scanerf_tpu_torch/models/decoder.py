@@ -12,6 +12,7 @@ gives the specular base color. Parameters are a plain dict
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -61,6 +62,18 @@ def apply_decoder(params: dict, features, viewdirs, weight_feature=None) -> dict
     d = gaussian_act(_linear(params["dir1"], d))
     specular = torch.sigmoid(_linear(params["dir2"], d))
     return {"sigma": sigma, "diffuse": diffuse, "specular": specular, "tint": tint}
+
+
+def init_decoder(generator: torch.Generator, device="cpu") -> dict:
+    """torch.nn.Linear's default init, U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+    for every layer's weight and bias. ``generator`` lives on ``device``."""
+    out = {}
+    for name in PACK_ORDER:
+        fan_in, fan_out = SHAPES[name]
+        bound = 1.0 / float(np.sqrt(fan_in))
+        out[name] = {k: (torch.rand(shape, generator=generator, device=device) * 2 - 1) * bound
+                     for k, shape in (("w", (fan_in, fan_out)), ("b", (fan_out,)))}
+    return out
 
 
 def pack_params(params: dict) -> torch.Tensor:

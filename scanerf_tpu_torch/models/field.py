@@ -1,0 +1,262 @@
+"""Per-tile neural field: windowed hash tables + ShallowMLP + occupancy grid
+(counterpart of ``scanerf_tpu/models/field.py``), for training.
+
+Semantics kept from the JAX package: the tile bbox is doubled to hold a
+background shell, whose inner half is the foreground; the fg contraction
+maps the inner bbox to [-1, 1], the bg contraction is the L-infinity
+mip360 squash over [-2, 2]; BARF anneals the 16 levels with
+alpha(step) = clip(step / 10000 * 8 + 8, 0, 16); fg samples follow the
+occupancy grid over the inner bbox, bg samples are inverse-z beyond the
+doubled bbox. Invalid rays are masked, not compressed.
+
+``render_rays`` runs the windowed sorted-stream path with the fused
+decoder: the fg and bg points of all rays form one stream (``sort_pack``,
+B2), the fused hash + decoder kernels (B5 forward, B6 backward) decode it,
+and only the 8 columns return to ray order. Options of the JAX function
+that need what the port does not have yet raise ``NotImplementedError``
+naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from scanerf_tpu_torch import _device
+from scanerf_tpu_torch.models import decoder as decoder_lib
+from scanerf_tpu_torch.ops import hash_encode, integrate, sampling
+from scanerf_tpu_torch.ops.kernels import fused_train as ft
+from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+
+N_LEVELS = 16
+N_FEATURES = 2
+
+
+@dataclasses.dataclass
+class FieldParams:
+    """Trainable per-tile parameters."""
+
+    features: torch.Tensor  # flat [L, H*F] f32
+    decoder: dict  # ShallowMLP params {layer: {"w": [in, out], "b": [out]}}
+
+
+@dataclasses.dataclass
+class FieldState:
+    """Non-trainable per-tile field state."""
+
+    resolutions: torch.Tensor  # [L, 3] int32 hash lattice resolutions
+    min_bbox: torch.Tensor  # [3] corner of the DOUBLED bbox
+    bbox_size: torch.Tensor  # [3] size of the DOUBLED bbox
+    occupied_grid: torch.Tensor  # [Rx, Ry, Rz] bool over the INNER bbox
+
+
+def compute_sampler_log2dim(bbox_size2, sampler_log2dim: int) -> np.ndarray:
+    """Anisotropic occupancy grid dims."""
+    bbox_size2 = np.asarray(bbox_size2, dtype=np.float64)
+    return sampler_log2dim - np.log2(bbox_size2.max() / bbox_size2).astype(np.int32)
+
+
+def create_field(generator: torch.Generator, bbox_corner, bbox_size,
+                 log2_hashmap_size: int = 24, grid_resolution=(32, 2048),
+                 sampler_log2dim: int = 4, device="cuda") -> tuple[FieldParams, FieldState]:
+    """A tile's field on ``device``, its occupancy grid all occupied (as
+    training starts); tables and decoder drawn from ``generator`` (a
+    generator on ``device``). The JAX function's ``occupied_grid`` and
+    ``cubic_grid`` options wait for the orchestration slice (ROADMAP.md
+    queue A, item 'Orchestration')."""
+    dev = _device.resolve(device)
+    bbox_corner = np.asarray(bbox_corner, dtype=np.float32)
+    bbox_size = np.asarray(bbox_size, dtype=np.float32)
+    center = bbox_corner + bbox_size / 2.0
+    size2 = bbox_size * 2.0  # background shell
+    min_bbox = center - size2 / 2.0
+    finest = (size2 / size2.min() * grid_resolution[1]).astype(np.int32)
+    base = (size2 / size2.min() * grid_resolution[0]).astype(np.int32)
+    resolutions = hash_encode.make_level_resolutions(base, finest, N_LEVELS)
+    grid_shape = tuple(int(2**d) for d in compute_sampler_log2dim(size2, sampler_log2dim))
+    params = FieldParams(
+        features=hash_encode.init_features(generator, N_LEVELS, log2_hashmap_size,
+                                           N_FEATURES, device=dev),
+        decoder=decoder_lib.init_decoder(generator, device=dev))
+    state = FieldState(
+        resolutions=torch.tensor(resolutions, device=dev),
+        min_bbox=torch.tensor(min_bbox, device=dev),
+        bbox_size=torch.tensor(size2, device=dev),
+        occupied_grid=torch.ones(grid_shape, dtype=torch.bool, device=dev))
+    return params, state
+
+
+def inner_corner(state: FieldState) -> torch.Tensor:
+    return state.min_bbox + state.bbox_size / 4.0
+
+
+def inner_size(state: FieldState) -> torch.Tensor:
+    return state.bbox_size / 2.0
+
+
+def contract_fore(state: FieldState, x: torch.Tensor) -> torch.Tensor:
+    """Inner bbox -> [-1, 1]."""
+    return (x - state.min_bbox) / state.bbox_size * 4.0 - 2.0
+
+
+def contract_bg(state: FieldState, x: torch.Tensor) -> torch.Tensor:
+    """L-infinity mip360 squash over [-2, 2]."""
+    x = (x - state.min_bbox) / state.bbox_size * 4.0 - 2.0
+    linf = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-9)
+    return x * ((2.0 - 1.0 / linf) / linf)
+
+
+def weight_feature(step: torch.Tensor) -> torch.Tensor:
+    """BARF per-level annealing weights [16] at ``step`` (an f32 scalar
+    tensor)."""
+    alpha = (step / 10000.0 * 8.0 + 8.0).clamp(0.0, 16.0)
+    k = torch.arange(N_LEVELS, dtype=torch.float32, device=step.device)
+    return (1.0 - torch.cos((alpha - k).clamp(0.0, 1.0) * math.pi)) / 2.0
+
+
+def _composite_premul(out: dict, z, d, rays_d, valid, infinity: bool, train: bool) -> dict:
+    """Composite of the stream's 8 columns (tint * specular premultiplied,
+    the specular square's channel mean carried in one column)."""
+    weights, T_left = integrate.integrate_weights(out["sigma"], d, rays_d, infinity=infinity)
+    weights = torch.where(valid[:, None], weights, torch.zeros_like(weights))
+    T_left = torch.where(valid, T_left, torch.ones_like(T_left))
+    depth = integrate.accumulate(weights, z[..., None])
+    diffuse = integrate.accumulate(weights, out["diffuse"])
+    specular = integrate.accumulate(weights, out["tintspec"])
+    res = {"rgb": (diffuse + specular).clamp(0.0, 1.0), "depth": depth,
+           "diffuse": diffuse, "specular": specular, "T_left": T_left,
+           "weights": weights, "valid": valid}
+    if train:
+        spec2 = integrate.accumulate(weights.detach(), out["spec2"])[..., 0]
+        nvalid = valid.to(spec2.dtype).sum().clamp_min(1.0)
+        res["l2_reg_specular"] = (spec2 * valid).sum() / nvalid
+    return res
+
+
+def _compose_fg_bg(fg: dict, bg: dict, rays_o, rays_d, train: bool) -> dict:
+    """fg + T_left * bg."""
+    T = fg["T_left"][:, None]
+    out = {
+        "pred_color": fg["rgb"] + T * bg["rgb"],
+        "pred_depth": fg["depth"] + T * bg["depth"],
+        "pred_specular": fg["specular"] + T * bg["specular"],
+        "pred_diffuse": fg["diffuse"] + T * bg["diffuse"],
+        "fore_valid": fg["fore_valid"],
+        "bg_valid": bg["bg_valid"],
+        "fore_depth": fg["depth"],
+        "T_left": fg["T_left"],
+        "weights": fg["weights"],
+        "rays_o": rays_o,
+        "rays_d": rays_d,
+    }
+    if train:
+        out["l2_reg_specular"] = fg["l2_reg_specular"] + bg["l2_reg_specular"]
+    return out
+
+
+def _check_options(H, backend, table_shards, bwd_onehot_bf16, fused_decoder,
+                   stochastic_grad, bg_z):
+    if backend not in ("xla", "windowed"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "xla" or H < hw.W * hw.WB:
+        raise NotImplementedError(
+            "the global-hash backend (backend='xla', tables below 2^14 entries) "
+            "is not ported yet: ROADMAP.md queue A, item 'Hash encoders'")
+    if not fused_decoder:
+        raise NotImplementedError(
+            "fused_decoder=False needs the unfused hash kernels B3/B4: ROADMAP.md "
+            "queue B, items B3 and B4")
+    if table_shards > 1:
+        raise NotImplementedError("sharded tables are not ported yet: ROADMAP.md "
+                                  "queue A, item 'Multi-device'")
+    if stochastic_grad:
+        raise NotImplementedError("the stochastic-corner gradient belongs to the "
+                                  "global-hash backend: ROADMAP.md queue A, item "
+                                  "'Multi-device and opt-in knobs'")
+    if bwd_onehot_bf16:
+        raise NotImplementedError("hash_bwd_bf16 is not ported: ROADMAP.md queue A, "
+                                  "item 'Multi-device and opt-in knobs'")
+    if bg_z is not None:
+        sampling.background_window_sampling()
+
+
+def render_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
+                num_fg_sample: int, num_bg_sample: int, step: torch.Tensor,
+                occlusion_mask=None, train: bool = True, invalid_underground: bool = False,
+                num_march: int = 512, stochastic_grad: bool = False, bg_z=None,
+                backend: str = "windowed", table_shards: int = 1,
+                bwd_onehot_bf16: bool = False, fused_decoder: bool = True,
+                compact_dead: bool = True, stage_hook=None) -> dict:
+    """fg + bg render of rays [N, 3] (unnormalized directions) through the
+    windowed sorted stream with the fused decoder. ``step`` is an f32
+    scalar tensor (BARF annealing). ``stage_hook(name)``, when given, is
+    called after each stage (sample, sort_pack, decode, unsort, composite)
+    for timing. Differentiable in the field's params and in rays_o /
+    rays_d (through the sample positions and view dirs)."""
+    H = params.features.shape[1] // N_FEATURES
+    _check_options(H, backend, table_shards, bwd_onehot_bf16, fused_decoder,
+                   stochastic_grad, bg_z)
+    B = rays_o.shape[0]
+    Sf, Sb = num_fg_sample, num_bg_sample
+    zf, df, vf = sampling.sample_points_grid(
+        rays_o, rays_d, Sf, state.occupied_grid, inner_corner(state), inner_size(state),
+        num_march=num_march)
+    zb, db, vb = sampling.inverse_z_sampling(
+        rays_o, rays_d, Sb, state.min_bbox + state.bbox_size / 2.0, state.bbox_size,
+        invalid_underground=invalid_underground)
+    if occlusion_mask is not None:
+        vf = vf & occlusion_mask
+        vb = vb & occlusion_mask
+    zero = torch.zeros((), device=rays_o.device)
+    zfm = torch.where(vf[:, None], zf, zero)
+    dfm = torch.where(vf[:, None], df, zero)
+    zbm = torch.where(vb[:, None], zb, zero)
+    dbm = torch.where(vb[:, None], db, zero)
+    _mark(stage_hook, "sample")
+
+    xf = contract_fore(state, (rays_o[:, None, :] + zfm[..., None] * rays_d[:, None, :])
+                       .reshape(-1, 3))
+    xb = contract_bg(state, (rays_o[:, None, :] + zbm[..., None] * rays_d[:, None, :])
+                     .reshape(-1, 3))
+    x = torch.cat([xf, xb])
+    dirs = torch.cat([rays_d[:, None, :].expand(B, Sf, 3).reshape(-1, 3),
+                      rays_d[:, None, :].expand(B, Sb, 3).reshape(-1, 3)])
+    dead = None
+    if compact_dead:
+        # masked / missed rays carry zero composite weight: their points go
+        # to the sentinel window, so whole-dead chunks skip the kernels
+        dead = torch.cat([(~vf)[:, None].expand(B, Sf).reshape(-1),
+                          (~vb)[:, None].expand(B, Sb).reshape(-1)])
+    stream = hw.sort_pack(x, dirs, H, dead)
+    _mark(stage_hook, "sort_pack")
+    slab = ft.pack_train_slab(params.decoder, weight_feature(step))
+    cols = ft.hash_decode_train(stream.pts, stream.meta, params.features, state.resolutions,
+                                slab)
+    _mark(stage_hook, "decode")
+    rows = hw.unsort_rows(cols, stream.pidp, x.shape[0])
+    _mark(stage_hook, "unsort")
+
+    def as_parts(part, S):
+        return {"sigma": part[:, 0:1].reshape(B, S, 1),
+                "diffuse": part[:, 1:4].reshape(B, S, 3),
+                "tintspec": part[:, 4:7].reshape(B, S, 3),
+                "spec2": part[:, 7:8].reshape(B, S, 1)}
+
+    Nf = B * Sf
+    fg = _composite_premul(as_parts(rows[:Nf], Sf), zfm, dfm, rays_d, vf,
+                           infinity=False, train=train)
+    bg = _composite_premul(as_parts(rows[Nf:], Sb), zbm, dbm, rays_d, vb,
+                           infinity=True, train=train)
+    fg["fore_valid"] = vf
+    bg["bg_valid"] = vb
+    out = _compose_fg_bg(fg, bg, rays_o, rays_d, train)
+    _mark(stage_hook, "composite")
+    return out
+
+
+def _mark(hook, name: str) -> None:
+    if hook is not None:
+        hook(name)

@@ -1,5 +1,5 @@
-"""Hash-table helpers the windowed renderer needs (counterpart of
-``scanerf_tpu/ops/hash_encode.py:40,89``). The global prime-XOR hash
+"""Hash-table helpers of the windowed layout (counterpart of
+``scanerf_tpu/ops/hash_encode.py:40,89,301``). The global prime-XOR hash
 waits for the staged backend."""
 
 from __future__ import annotations
@@ -25,3 +25,13 @@ def make_level_resolutions(
     b = np.exp((np.log(finest) - np.log(base)) / (n_levels - 1))
     levels = [(base * b**i).astype(np.int32) for i in range(n_levels)]
     return np.stack(levels, axis=0)
+
+
+def init_features(generator: torch.Generator, n_levels: int, log2_hashmap_size: int,
+                  n_features: int = 2, device="cpu") -> torch.Tensor:
+    """Xavier-normal table init (the reference default), flat [L, H*F] f32:
+    std = sqrt(2 / (H*F + L)). ``generator`` lives on ``device``."""
+    H = 2**log2_hashmap_size
+    std = float(np.sqrt(2.0 / (H * n_features + n_levels)))
+    return std * torch.randn((n_levels, H * n_features), generator=generator,
+                             dtype=torch.float32, device=device)

@@ -260,9 +260,64 @@ def sort_pack_tables(x, dirs, tids, H: int, n_tables: int, dead=None) -> SortedS
                         visited=pop > 0)
 
 
+class _SortPack(torch.autograd.Function):
+    """Single-table window sort + pack, differentiable in the positions
+    and view dirs it carries (the window assignment is piecewise
+    constant). Backward (the JAX ``_sp_bwd``, hash_encode.py:708-732):
+    each stream row's cotangent of pts rows 0-2, times 0.25 (u = (x+2)/4),
+    and of rows 4-6 goes back to its source row; pad rows have no source.
+    Dead rows get what their stream rows got, which is zero on the
+    training path (their outputs are masked before any loss)."""
+
+    @staticmethod
+    def forward(ctx, x, dirs, H, dead):
+        tids = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+        st = sort_pack_tables(x, dirs, tids, H, 1, dead=dead)
+        ctx.save_for_backward(st.pidp)
+        ctx.n_rows = x.shape[0]
+        ctx.mark_non_differentiable(st.meta, st.pidp, st.visited)
+        return st.pts, st.meta, st.pidp, st.visited
+
+    @staticmethod
+    def backward(ctx, g_pts, *_):
+        (pidp,) = ctx.saved_tensors
+        N = ctx.n_rows
+        if g_pts is None:
+            return None, None, None, None
+        cols = g_pts.permute(0, 2, 1).reshape(-1, 8)
+        out = cols.new_zeros((N + 1, 6))
+        out.index_copy_(0, pidp.to(torch.int64),
+                        torch.cat([cols[:, 0:3] * 0.25, cols[:, 4:7]], dim=1))
+        return out[:N, 0:3], out[:N, 3:6], None, None
+
+
+def sort_pack(x, dirs, H: int, dead=None) -> SortedStream:
+    """Window-sort + pad-align rows x [N, 3] in [-2, 2] with view dirs
+    [N, 3] for one table of H entries; ``dead`` [N] bool sends rows whose
+    outputs are discarded to the sentinel window. ``pts`` is
+    differentiable in x and dirs."""
+    pts, meta, pidp, visited = _SortPack.apply(x, dirs, H, dead)
+    return SortedStream(pts=pts, meta=meta, pidp=pidp, visited=visited)
+
+
+class _UnsortRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals, pidp, N):
+        ctx.save_for_backward(pidp)
+        ctx.n_rows = N
+        out = vals.new_empty((N + 1, vals.shape[1]))
+        out.index_copy_(0, pidp.to(torch.int64), vals)
+        return out[:N]
+
+    @staticmethod
+    def backward(ctx, g):
+        (pidp,) = ctx.saved_tensors
+        gz = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+        return gz[pidp.to(torch.int64)], None, None
+
+
 def unsort_rows(vals: torch.Tensor, pidp: torch.Tensor, N: int) -> torch.Tensor:
     """Padded-sorted [Np, D] -> original row order [N, D] (pad rows, whose
-    pid is N, land in a dropped extra row)."""
-    out = vals.new_empty((N + 1, vals.shape[1]))
-    out.index_copy_(0, pidp.to(torch.int64), vals)
-    return out[:N]
+    pid is N, land in a dropped extra row). Differentiable: the backward
+    gathers by ``pidp`` (hash_encode.py:804-819), pad rows get zero."""
+    return _UnsortRows.apply(vals, pidp, N)

@@ -35,8 +35,7 @@ from scanerf_tpu_torch.models import decoder as decoder_lib
 from scanerf_tpu_torch.ops import intersect
 from scanerf_tpu_torch.ops.kernels import fused_render as fr
 from scanerf_tpu_torch.ops.kernels import hash_encode as hw
-from scanerf_tpu_torch.ops.kernels.sampler import linspace01
-from scanerf_tpu_torch.ops.sampling import cdf_sample_from_bounds
+from scanerf_tpu_torch.ops.sampling import cdf_sample_from_bounds, inverse_z_vals
 from scanerf_tpu_torch.train.checkpoint import load_tile_export
 
 MAX_PTS_BLOCKS = 4  # most tiles blended per sample
@@ -375,15 +374,6 @@ def _exit_slots(scene: MultiTileScene, rays_o, rays_d, K: int):
     return tiles, w, far, bg_valid
 
 
-def _bg_zvals(far: torch.Tensor, num_bg_sample: int):
-    """Inverse-z samples from the exit to 1e6, shared by all exit slots."""
-    N = far.shape[0]
-    tb = linspace01(num_bg_sample, far.device)[None]
-    z = 1.0 / ((1.0 / (far[:, None] + 1e-6)) * (1.0 - tb) + (1.0 / 1e6) * tb)
-    d = torch.cat([z[:, 1:] - z[:, :-1], torch.full((N, 1), 1e-6, device=far.device)], 1)
-    return z, d
-
-
 def _contract_fg(corner, size, pts):
     """Inner bbox of the doubled (corner, size) -> [-1, 1]."""
     return ((pts - corner) / size) * 4.0 - 2.0
@@ -544,7 +534,7 @@ def render_rays(scene: MultiTileScene, rays_o, rays_d, num_sample: int = 128,
     z_vals, dists, valid = _sample_union(scene, rays_o, rays_d, num_sample, num_march)
     bg_tiles, bg_w, far, bg_valid = _exit_slots(
         scene, rays_o, rays_d, min(max_blend_tiles, scene.n_tiles))
-    z_bg, d_bg = _bg_zvals(far, num_bg_sample)
+    z_bg, d_bg = inverse_z_vals(far, num_bg_sample)  # shared by all exit slots
     _mark(stage_hook, "sample")
     rgb_fg, depth_fg, T_left, rgb_bg, depth_bg, valid = _render_windowed(
         scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles, bg_w, z_bg, d_bg,

@@ -306,6 +306,6 @@ def test_bg_zvals_match_jax(Sb):
     its linspace as jnp.linspace does."""
     far = np.random.RandomState(Sb).uniform(0.5, 30.0, 40).astype(np.float32)
     zr, dr = jr._bg_zvals(jnp.asarray(far), Sb)
-    z, d = tr._bg_zvals(torch.from_numpy(far), Sb)
+    z, d = tsampling.inverse_z_vals(torch.from_numpy(far), Sb)
     np.testing.assert_array_equal(np.asarray(zr), z.numpy())
     np.testing.assert_array_equal(np.asarray(dr), d.numpy())
