@@ -3,45 +3,49 @@
 
     python3 chip_smoke.py
 
-Two phases, each driven through the port's entry points with the
-kernels' launch counts set to 0 just before and read just after.
+Two phases, each driven through the port's entry points in both decoder
+configurations, fused (the default) and unfused (slice 3:
+``fuse_decoder=False`` / ``fused_decoder=False``), with the kernels'
+launch counts set to 0 just before each counted run and read just after.
 
-Render (slice 1). Builds the port's CUDA kernels from csrc/, writes a 4-tile scene in the
-reference export layout (16 levels x 2 features, H = 2^21 entries per
-tile, 64^3 occupancy shells, random decoders at the real widths; all
-from a fixed seed), loads it with ``load_scene(device="cuda")`` and
-renders a 256x128 frame (4 chunks of 8192 rays, 128 fg + 128 bg
-samples, a 512-step march, up to 4 blended tiles) with ``render_image``
-from two views: one from outside the tile grid, where few rays meet
-occupied cells, and one from inside it looking down, where all do.
-Then it holds every kernel of that path against its plain PyTorch
-version on the card at the render's shapes, holds the card's render of a
-few hundred rays of each view against the plain render on the CPU, times
-the kernels and the render's stages with CUDA events, and prints:
-
-- the card's name and power limit (nvidia-smi);
-- per view, the share of rays that meet occupied cells, rays/s and the
-  per-stage split;
-- one JSON line ``{"kernels": [...]}`` with, per kernel, its launches in
-  the counted render, max error against the plain version, times, and
-  the bound (least time the card could take for the same work);
-- last, ``{"ok": true, "device": {...}}``.
+Render (slice 1). Builds the port's CUDA kernels from csrc/, writes a
+4-tile scene in the reference export layout (16 levels x 2 features, H =
+2^21 entries per tile, 64^3 occupancy shells, random decoders at the
+real widths; all from a fixed seed), loads it with
+``load_scene(device="cuda")`` and renders a 256x128 frame (4 chunks of
+8192 rays, 128 fg + 128 bg samples, a 512-step march, up to 4 blended
+tiles) with ``render_image`` from two views: one from outside the tile
+grid, where few rays meet occupied cells, and one from inside it looking
+down, where all do; each view fused (B1, B2, B7) and unfused (B1, B2, B3
+and each tile's decoder in PyTorch), the unfused frame held against the
+fused one. Then it holds every kernel of that path against its plain
+PyTorch version on the card at the render's shapes (B3 and B7 with f32
+and bf16 tables), holds the card's render of a few hundred rays of each
+view in each configuration against the plain render on the CPU, and
+times the kernels and the render's stages with CUDA events.
 
 Training (slice 2). bench.py's workload (the synthetic sphere scene, 16
 cameras at 256x256; 2^14 rays a step in 2x2 patches; 128 fg + 128 bg
 samples and a 512-step march; 16 levels x 2 features at H = 2^21, f32;
 a 64^3 occupancy grid) through ``create_field`` -> ``create_train_state``
 -> ``train_step``, rgb-only and the full recipe (warp 1.0 at K=5 with the
-16/8/64 visibility re-render, depth 0.01, smooth 0.001, rho 100): 2 warm-up
-and 5 timed steps of each, training rays/s from the host clock, one
-step's stages from CUDA events, the idle share of a profiled step. Holds
-B5 and B6 against their plain versions on the middle 256 chunks of a
-step's own stream, times them on the whole stream, and holds one
-full-recipe step of 512 rays on the card against the same step on the
-CPU (losses and gradients).
+16/8/64 visibility re-render, depth 0.01, smooth 0.001, rho 100), each
+fused (B1, B2, B5, B6) and unfused (B1, B2, B3, B4): 2 warm-up and 5
+timed steps of each, training rays/s from the host clock, one step's
+stages from CUDA events, the idle share of a profiled step. Holds one
+full-recipe step fused against the same step unfused (losses and
+gradients), B5, B6, B3 and B4 against their plain versions on the middle
+256 chunks of a step's own stream (B4 with the unfused decoder's feature
+cotangent, under the step's BARF weights and with every level on), times
+them on the whole stream, and holds one full-recipe step of 512 rays on
+the card against the same step on the CPU (losses and gradients).
 
-The ``kernels`` line lists B1, B2 and B7 from the render phase and B5,
-B6 from the training phase. Each phase prints its seconds.
+It prints the card's name and power limit (nvidia-smi), each phase's
+seconds, and, before the last line, one JSON line ``{"kernels": [...]}``
+with B1-B7: per kernel, its launches in the counted runs, max error
+against the plain version, times, and the bound (least time the card
+could take for the same work). The last line is ``{"ok": true,
+"device": {...}}``.
 
 Any failed build, launch or comparison ends the script with a non-zero
 exit code before the last line. Without CUDA it exits 1 and prints no
@@ -51,6 +55,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -73,6 +78,7 @@ IMG_H, IMG_W = 128, 256
 CHUNK = 8192
 RENDER_KW = dict(num_sample=128, num_bg_sample=128, num_march=512, max_blend_tiles=4)
 N_PARITY_RAYS = 256
+RENDER_TOL = (("rgb", 1e-4), ("depth", 1e-3), ("T_left", 1e-4))
 
 
 def fail(msg: str) -> None:
@@ -156,7 +162,7 @@ def cameras():
 # ---------------------------------------------------------------------------
 
 class Capture:
-    """Swap the three kernel wrappers for recorders that keep the first
+    """Swap the render's kernel wrappers for recorders that keep the first
     call's arguments and call through; restore them on exit. A wrapper
     counts its launches on the name it is bound to in its module, so the
     recorder carries its own count and these launches stay out of the
@@ -180,6 +186,7 @@ class Capture:
     def __enter__(self):
         self.saved = [self._wrap(self.sampler, "sample_fused", "B1"),
                       self._wrap(self.hw, "pack", "B2"),
+                      self._wrap(self.hw, "lookup_fwd", "B3"),
                       self._wrap(self.fr, "hash_decode_fused", "B7")]
         return self
 
@@ -202,6 +209,18 @@ WARM_STEPS, TIMED_STEPS = 2, 5
 N_SUB_CHUNKS = 256  # B5/B6 against their plain versions on this many middle chunks
 N_CHECK_RAYS = 512  # the card's step against the CPU's
 MACS = 32 * 64 + 64 * 64 + 7 * 32 + 48 * 64 + 64 * 64 + 3 * 64  # decoder per row
+# fused against unfused, one full-recipe step from the same state and rays
+# at the 512-ray check's loss weights (below): the same samples, only the
+# decode's sums (B5/B6 per row against B3/B4 and torch.matmul) and the
+# atomics in another order. On an H100 80GB HBM3 at 700 W two runs agreed
+# within 2e-7 relative in the losses but the warp loss, which differed by
+# 1.7e-5 and 1.0e-5 (its visibility re-render decodes with B5 against B3),
+# and within 5.5e-7 (tables), 1.7e-5 (decoder) and 1.7e-5 (se3_refine)
+# relative L2 in the gradients. The limits are 6-200 times those; se3_refine
+# keeps test (g)'s 1e-3, as the pose gradient moves with f32 rounding in
+# neighbour selection (ROADMAP.md queue C).
+FVU_LOSS_RTOL = {"*": 1e-5, "warp_loss": 1e-3}
+FVU_GRAD_RTOL = {"hash": 1e-4, "decoder": 1e-4, "cam": 1e-3}
 
 
 def to_device(obj, dev):
@@ -275,91 +294,252 @@ def rel_l2(a, b) -> float:
     return float((a.double() - b.double()).norm() / a.double().norm().clamp_min(1e-30))
 
 
-def train_phase() -> list[dict]:
-    """Both arms of bench.py's step on the card; B5 and B6 against their
-    plain versions; a 512-ray step on the card against the CPU's."""
-    from scanerf_tpu_torch.models import field
+def check_parts(what: str, parts, all_on: bool) -> list[float]:
+    """Hold each (name, kernel, plain) part of a backward kernel's output
+    within 1e-4 of the plain part's own largest entry (the atomics add in
+    an order that changes from run to run); with ``all_on`` (every level
+    weighted 1) no part may be zero in the plain version. Returns the
+    max errors."""
+    errs, worst = [], (0.0, "")
+    for name, a, b in parts:
+        scale = float(b.abs().max())
+        e = float((a - b).abs().max())
+        errs.append(e)
+        ratio = e / scale if scale > 0 else (0.0 if e == 0 else float("inf"))
+        worst = max(worst, (ratio, name))
+        if all_on and scale == 0:
+            fail(f"{what} {name} is zero in the plain version: the check is empty")
+        if not (torch.isfinite(a).all() and e <= 1e-4 * scale):
+            fail(f"{what} {name} differs from its plain version: max err {e:.3g}, "
+                 f"largest entry {scale:.3g} (tol 1e-4 of it)")
+        if not name.startswith("d_tables level") or name.endswith((" 0", " 15")):
+            print(f"{what} {name}: max err {e:.3g}, {ratio:.3g} of its largest "
+                  f"entry {scale:.3g} (tol 1e-4 of it), rel L2 {rel_l2(b, a):.3g}")
+    print(f"{what}: worst part {worst[1]} at {worst[0]:.3g} of its largest entry (tol 1e-4)")
+    return errs
+
+
+def train_arm(arm, kw, fused, counters, launches):
+    """One arm of bench.py's step in one decoder configuration: 2 warm-up
+    steps, then the counted main path (5 timed steps, each kernel's count
+    set to 0 just before and read just after), a step's stages from CUDA
+    events and a profiled step. Returns (state, data, tc, generator)."""
     from scanerf_tpu_torch.models.decoder import pack_params
+    from scanerf_tpu_torch.train import tile
+
+    t_arm = time.perf_counter()
+    label = f"{arm}{'' if fused else ' unfused'}"
+    tc = tile.TrainConfig(**TRAIN_KW, **kw, fused_decoder=fused)
+    state, data = train_setup(tc)
+    gen = torch.Generator().manual_seed(1)
+    rays_per_step = (2**tc.batch_log2 // TRAIN_CAMS) // 4 * 4 * TRAIN_CAMS
+    p = state.params
+    before = (p.field.features.clone(), pack_params(p.field.decoder).clone(),
+              p.se3_refine.clone())
+    losses = []
+    for _ in range(WARM_STEPS):
+        state, aux = tile.train_step(state, data, tc, gen, device="cuda")
+        losses.append(aux["total_loss"])
+    # --- the counted main path: the timed steps
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        state, aux = tile.train_step(state, data, tc, gen, device="cuda")
+        losses.append(aux["total_loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    print(f"train {label}: {TIMED_STEPS} steps of {rays_per_step} rays in {wall * 1e3:.1f} ms: "
+          f"{rays_per_step * TIMED_STEPS / wall:.0f} training rays/s; launches {got}")
+    for k, n in got.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the training path ({label})")
+        launches[k] += n
+    if not torch.isfinite(torch.stack(losses)).all():
+        fail(f"non-finite loss in the {label} steps")
+    print(f"train {label}: " + ", ".join(f"{k} {float(v):.5g}" for k, v in aux.items()
+                                         if v.ndim == 0))
+
+    # --- where a step's time goes: CUDA events at the stage marks
+    events = []
+
+    def hook(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((name, ev))
+
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    state, aux = tile.train_step(state, data, tc, gen, device="cuda", stage_hook=hook)
+    torch.cuda.synchronize()
+    split, prev = {}, start
+    for name, ev in events:
+        split[name] = split.get(name, 0.0) + prev.elapsed_time(ev)
+        prev = ev
+    print(f"stages {label} (ms, one step): "
+          + json.dumps({k: round(v, 3) for k, v in split.items()})
+          + f" sum {sum(split.values()):.2f}")
+    profiled_idle(lambda: tile.train_step(state, data, tc, gen, device="cuda"),
+                  f"step {label}")
+    p = state.params
+    after = (p.field.features, pack_params(p.field.decoder), p.se3_refine)
+    for name, a, b in zip(("tables", "decoder", "se3_refine"), before, after):
+        if torch.equal(a, b):
+            fail(f"{name} did not change over the {label} steps")
+    print(f"phase train {label}: {time.perf_counter() - t_arm:.1f} s")
+    return state, data, tc, gen
+
+
+def fused_vs_unfused(state, data, tc):
+    """One full-recipe step on the card from the same state and ray_idx
+    with the fused decoder (B5/B6) and the unfused one (B3, the decoder in
+    PyTorch, B4): the samples are identical, only the decode's summation
+    order (and the atomics' order) differs."""
+    from scanerf_tpu_torch.train import tile
+
+    ray_idx, locs = tile.sample_patches(torch.Generator().manual_seed(5), TRAIN_HW, TRAIN_HW,
+                                        2**tc.batch_log2 // TRAIN_CAMS // 4, device="cuda")
+    pix = locs[None].expand(TRAIN_CAMS, *locs.shape)
+    out = {f: tile.compute_grads(state, data, dataclasses.replace(tc, fused_decoder=f),
+                                 ray_idx=ray_idx, pixel_locs=pix) for f in (True, False)}
+    (_, a_f), g_f = out[True]
+    (_, a_u), g_u = out[False]
+    for k in ("total_loss", "rgb_loss", "depth_loss", "smooth_loss", "warp_loss", "admm_loss"):
+        a, b = float(a_u[k]), float(a_f[k])
+        tol = FVU_LOSS_RTOL.get(k, FVU_LOSS_RTOL["*"]) * abs(b)
+        print(f"fused vs unfused {k}: fused {b:.7g} unfused {a:.7g} (tol {tol:.3g})")
+        if not b > 1e-4:
+            fail(f"the check's {k} is {b:.3g}, not above 1e-4: it carries no weight")
+        if not (np.isfinite(a) and abs(a - b) <= tol):
+            fail(f"the unfused step's {k} differs from the fused step's")
+    for name in ("hash", "decoder", "cam"):
+        worst = max(rel_l2(b, a) for a, b in zip(g_u[name], g_f[name]) if b.abs().max() > 0)
+        print(f"fused vs unfused grad {name}: worst relative L2 {worst:.3g} "
+              f"(tol {FVU_GRAD_RTOL[name]})")
+        if not worst <= FVU_GRAD_RTOL[name]:
+            fail(f"the unfused step's {name} gradient differs from the fused step's")
+
+
+def lookup_kernels(state, pts, meta, table, res, NW, g, sub_range, launches, render_b3):
+    """B3 and B4 on the stream of a training step: against their plain
+    versions on the middle chunks ``sub_range``, with the feature
+    cotangent that the unfused decoder's autograd gives for the step's
+    column cotangent ``g`` under the step's BARF weights and under weights
+    of 1 on every level; then timed on the whole stream. Returns the two
+    rows of the ``kernels`` line; B3's launches and error include the
+    unfused render's (``render_b3``)."""
+    from scanerf_tpu_torch.models import field
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+
+    NC = pts.shape[0]
+    dirs = pts[:, 4:7, :].permute(0, 2, 1).reshape(-1, 3)
+    wf_step = field.weight_feature(torch.tensor(float(state.step), device="cuda"))
+    wf_all = field.weight_feature(torch.tensor(20000.0, device="cuda"))
+
+    def d_feats(feats, rows, wf):
+        f = feats.detach().requires_grad_()
+        with torch.enable_grad():
+            cols = field.decode_columns(state.params.field.decoder, f, dirs[rows], wf)
+        return torch.autograd.grad(cols, f, g[rows])[0].contiguous()
+
+    c0, c1 = sub_range
+    sub = (pts[c0:c1].contiguous(), meta[c0:c1].contiguous())
+    rows = slice(c0 * hw.CHUNK, c1 * hw.CHUNK)
+    live_c = sub[1][:, :, 2].sum(dim=1) > 0
+    _, NB, _ = hw.geometry(NW * hw.W)
+    unvisited = torch.ones(NB, dtype=torch.bool, device="cuda")
+    unvisited[sub[1][live_c, 0, 0].long()] = False
+    f_k = hw.lookup_fwd(*sub, table, res, NW)
+    f_p = hw.lookup_fwd_plain(sub[0], table, res, NW)
+    err_b3 = [float((f_k - f_p).abs().max())]
+    scale = float(f_p.abs().max())
+    print(f"B3 training stream, chunks {c0}-{c1}: max err {err_b3[0]:.3g}, largest entry "
+          f"{scale:.3g} (tol 1e-5 of it)")
+    if not (torch.isfinite(f_k).all() and err_b3[0] <= 1e-5 * scale):
+        fail("B3 differs from its plain version on the training stream")
+    err_b4 = []
+    for label, wf in (("step weights", wf_step), ("all levels", wf_all)):
+        gf = d_feats(f_p, rows, wf)
+        dpts_k, dtab_k = hw.lookup_bwd(*sub, table, res, gf, NW)
+        dpts_p, dtab_p = hw.lookup_bwd_plain(sub[0], table, res, gf, NW)
+        if dpts_k[:, 3:].count_nonzero() or dpts_p[:, 3:].count_nonzero():
+            fail(f"B4 ({label}) dpts rows 3-7 are not zero")
+        for name, d in (("kernel", dtab_k), ("plain", dtab_p)):
+            if d.reshape(LEVELS, NB, -1)[:, unvisited].count_nonzero():
+                fail(f"B4 ({label}) {name} table gradient is not zero on unvisited blocks")
+        parts = [("dpts u", dpts_k[:, 0:3], dpts_p[:, 0:3])]
+        parts += [(f"d_tables level {lv}", dtab_k[lv], dtab_p[lv]) for lv in range(LEVELS)]
+        err_b4 += check_parts(f"B4 ({label})", parts, label == "all levels")
+        print(f"B4 ({label}): rows 3-7 and {int(unvisited.sum())} unvisited blocks exactly 0")
+        del dpts_k, dtab_k, dpts_p, dtab_p, gf
+    torch.cuda.empty_cache()
+
+    # times on the whole stream, with the step's feature cotangent
+    feats = hw.lookup_fwd(pts, meta, table, res, NW)
+    gf = d_feats(feats, slice(None), wf_step)
+    live = int((meta[:, :, 2].sum(dim=1) > 0).sum())
+    real_rows = int((pts[:, 3, :] < NW).sum())
+    visited = int(torch.unique(meta[meta[:, :, 2].sum(dim=1) > 0, 0, 0]).numel())
+    tab_bytes = visited * LEVELS * hw.WB * hw.W * 2 * 4
+    # what each function needs: B3 reads pts rows 0-3 (u, window id), the
+    # meta and the visited table blocks and writes the features; B4 reads
+    # the same and the feature cotangent and writes dpts (all 8 rows) and
+    # the dense table gradient once
+    u_wid_bytes = pts[:, 0:4].numel() * 4
+    b3 = dict(name="hash_lookup_fwd", route="cuda", source="scanerf_tpu_torch/csrc/hash_encode.cu",
+              replaces="scanerf_tpu/ops/pallas/hash_encode.py:1033",
+              launches=launches["B3"] + render_b3["launches"],
+              max_abs_err=max(err_b3 + [render_b3["err"]]),
+              ms=timed(lambda: hw.lookup_fwd(pts, meta, table, res, NW), 10),
+              plain_ms=timed(lambda: hw.lookup_fwd_plain(pts, table, res, NW), 1),
+              bytes=u_wid_bytes + meta.numel() * 4 + feats.numel() * 4 + tab_bytes,
+              ops=real_rows * LEVELS * 8 * 6, library_ms=None)
+    b4 = dict(name="hash_lookup_bwd", route="cuda", source="scanerf_tpu_torch/csrc/hash_encode.cu",
+              replaces="scanerf_tpu/ops/pallas/hash_encode.py:1104", launches=launches["B4"],
+              max_abs_err=max(err_b4),
+              ms=timed(lambda: hw.lookup_bwd(pts, meta, table, res, gf, NW), 5),
+              plain_ms=timed(lambda: hw.lookup_bwd_plain(pts, table, res, gf, NW), 1),
+              bytes=(u_wid_bytes + pts.numel() * 4 + meta.numel() * 4 + gf.numel() * 4
+                     + tab_bytes + table.numel() * 4),
+              ops=real_rows * LEVELS * 8 * 14, library_ms=None)
+    print(f"B3 {b3['ms']:.3f} ms (plain {b3['plain_ms']:.1f}), B4 {b4['ms']:.3f} ms (plain "
+          f"{b4['plain_ms']:.1f}) on the whole stream: {NC} chunks, {live} live, {real_rows} "
+          f"real rows, {visited} visited blocks; B4 issues {real_rows * LEVELS * 8 * 2} f32 "
+          f"atomics")
+    return b3, b4
+
+
+def train_phase(render_b3: dict) -> list[dict]:
+    """Both arms of bench.py's step on the card, fused and unfused; one
+    step fused against unfused; B3-B6 against their plain versions; a
+    512-ray step on the card against the CPU's."""
+    from scanerf_tpu_torch.models import field
     from scanerf_tpu_torch.ops.kernels import fused_train as ft
     from scanerf_tpu_torch.ops.kernels import hash_encode as hw
     from scanerf_tpu_torch.ops.kernels import sampler as sp
     from scanerf_tpu_torch.train import tile
 
-    counters = {"B1": sp.sample_fused, "B2": hw.pack, "B5": ft.train_fwd, "B6": ft.train_bwd}
-    launches = dict.fromkeys(counters, 0)
+    counters = {True: {"B1": sp.sample_fused, "B2": hw.pack, "B5": ft.train_fwd,
+                       "B6": ft.train_bwd},
+                False: {"B1": sp.sample_fused, "B2": hw.pack, "B3": hw.lookup_fwd,
+                        "B4": hw.lookup_bwd}}
+    launches = dict.fromkeys(["B1", "B2", "B3", "B4", "B5", "B6"], 0)
     kept = {}
-    for arm, kw in ARMS.items():
-        t_arm = time.perf_counter()
-        tc = tile.TrainConfig(**TRAIN_KW, **kw)
-        state, data = train_setup(tc)
-        gen = torch.Generator().manual_seed(1)
-        rays_per_step = (2**tc.batch_log2 // TRAIN_CAMS) // 4 * 4 * TRAIN_CAMS
-        p = state.params
-        before = (p.field.features.clone(), pack_params(p.field.decoder).clone(),
-                  p.se3_refine.clone())
-        losses = []
-        for _ in range(WARM_STEPS):
-            state, aux = tile.train_step(state, data, tc, gen, device="cuda")
-            losses.append(aux["total_loss"])
-        # --- the counted main path: the timed steps
-        for c in counters.values():
-            c.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(TIMED_STEPS):
-            state, aux = tile.train_step(state, data, tc, gen, device="cuda")
-            losses.append(aux["total_loss"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = {k: c.launches for k, c in counters.items()}
-        print(f"train {arm}: {TIMED_STEPS} steps of {rays_per_step} rays in {wall * 1e3:.1f} ms: "
-              f"{rays_per_step * TIMED_STEPS / wall:.0f} training rays/s; launches {got}")
-        for k, n in got.items():
-            if n <= 0:
-                fail(f"kernel {k} was not launched on the training path ({arm})")
-            launches[k] += n
-        if not torch.isfinite(torch.stack(losses)).all():
-            fail(f"non-finite loss in the {arm} steps")
-        print(f"train {arm}: " + ", ".join(f"{k} {float(v):.5g}" for k, v in aux.items()
-                                           if v.ndim == 0))
+    for fused in (True, False):
+        for arm, kw in ARMS.items():
+            kept[arm, fused] = train_arm(arm, kw, fused, counters[fused], launches)
+    print(f"launches in the counted training steps (both arms of both configurations, "
+          f"{TIMED_STEPS} steps each): {launches}")
 
-        # --- where a step's time goes: CUDA events at the stage marks
-        events = []
-
-        def hook(name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((name, ev))
-
-        start = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        state, aux = tile.train_step(state, data, tc, gen, device="cuda", stage_hook=hook)
-        torch.cuda.synchronize()
-        split, prev = {}, start
-        for name, ev in events:
-            split[name] = split.get(name, 0.0) + prev.elapsed_time(ev)
-            prev = ev
-        print(f"stages {arm} (ms, one step): " + json.dumps({k: round(v, 3) for k, v in split.items()})
-              + f" sum {sum(split.values()):.2f}")
-        profiled_idle(lambda: tile.train_step(state, data, tc, gen, device="cuda"),
-                      f"step {arm}")
-        p = state.params
-        after = (p.field.features, pack_params(p.field.decoder), p.se3_refine)
-        for name, a, b in zip(("tables", "decoder", "se3_refine"), before, after):
-            if torch.equal(a, b):
-                fail(f"{name} did not change over the {arm} steps")
-        print(f"phase train {arm}: {time.perf_counter() - t_arm:.1f} s")
-        kept[arm] = (state, data, tc, gen)
-        del before
-    print(f"launches in the counted training steps (both arms, {TIMED_STEPS} steps each): "
-          f"{launches}")
+    state, data, tc, gen = kept[("full_recipe", True)]
+    kept.clear()
+    torch.cuda.empty_cache()
 
     # --- B5 and B6 inputs from one full-recipe step
     t_cmp = time.perf_counter()
-    state, data, tc, gen = kept.pop("full_recipe")
-    kept.clear()
-    torch.cuda.empty_cache()
     rec = {}
 
     def recorder(name, orig):
@@ -411,23 +591,7 @@ def train_phase() -> list[dict]:
                  ("dpts dirs", dpts_k[:, 4:7], dpts_p[:, 4:7]),
                  ("d_slab", dslab_k, dslab_p)]
         parts += [(f"d_tables level {lv}", dtab_k[lv], dtab_p[lv]) for lv in range(LEVELS)]
-        worst = (0.0, "")
-        for name, a, b in parts:
-            scale = float(b.abs().max())
-            e = float((a - b).abs().max())
-            err_b6.append(e)
-            ratio = e / scale if scale > 0 else (0.0 if e == 0 else float("inf"))
-            worst = max(worst, (ratio, name))
-            if label == "all levels" and scale == 0:
-                fail(f"B6 ({label}) {name} is zero in the plain version: the check is empty")
-            if not (torch.isfinite(a).all() and e <= 1e-4 * scale):
-                fail(f"B6 ({label}) {name} differs from its plain version: max err {e:.3g}, "
-                     f"largest entry {scale:.3g} (tol 1e-4 of it)")
-            if not name.startswith("d_tables level") or name.endswith((" 0", " 15")):
-                print(f"B6 {label} {name}: max err {e:.3g}, {ratio:.3g} of its largest "
-                      f"entry {scale:.3g} (tol 1e-4 of it), rel L2 {rel_l2(b, a):.3g}")
-        print(f"B6 {label}: worst part {worst[1]} at {worst[0]:.3g} of its largest entry "
-              f"(tol 1e-4)")
+        err_b6 += check_parts(f"B6 ({label})", parts, label == "all levels")
         del dpts_k, dtab_k, dslab_k, dpts_p, dtab_p, dslab_p, cols_p, feats_p
     torch.cuda.empty_cache()
 
@@ -435,9 +599,11 @@ def train_phase() -> list[dict]:
     _, feats_full = ft.train_fwd(pts, meta, table, res, pslab, NW)
     rows_b5 = NC * hw.CHUNK
     tab_bytes = visited * 16 * hw.WB * hw.W * 2 * 4
-    b5_bytes = (pts.numel() * 4 + meta.numel() * 4 + rows_b5 * 8 * 4 + feats_full.numel() * 4
+    # B5 and B6 read pts rows 0-6 (u, window id, dirs); B6 writes all of dpts
+    rows_in = pts[:, 0:7].numel() * 4
+    b5_bytes = (rows_in + meta.numel() * 4 + rows_b5 * 8 * 4 + feats_full.numel() * 4
                 + tab_bytes + pslab.numel() * 4)
-    b6_bytes = (pts.numel() * 4 + meta.numel() * 4 + feats_full.numel() * 4 + rows_b5 * 8 * 4
+    b6_bytes = (rows_in + meta.numel() * 4 + feats_full.numel() * 4 + rows_b5 * 8 * 4
                 + pts.numel() * 4 + tab_bytes + table.numel() * 4 + 2 * pslab.numel() * 4)
     b5 = dict(name="fused_train_fwd", route="cuda", source="scanerf_tpu_torch/csrc/fused_train.cu",
               replaces="scanerf_tpu/ops/pallas/fused_train.py:139", launches=launches["B5"],
@@ -455,11 +621,15 @@ def train_phase() -> list[dict]:
               bytes=b6_bytes, ops=live * hw.CHUNK * (6 * MACS + 16 * 8 * 16), library_ms=None)
     print(f"B5 {b5['ms']:.3f} ms (plain {b5['plain_ms']:.1f}), B6 {b6['ms']:.3f} ms "
           f"(plain {b6['plain_ms']:.1f}) on the whole stream")
-    del rec, pts, meta, g, feats_full
+    del feats_full
+    torch.cuda.empty_cache()
+    b3, b4 = lookup_kernels(state, pts, meta, table, res, NW, g, (c0, c1), launches, render_b3)
+    del rec, pts, meta, g
     torch.cuda.empty_cache()
     print(f"phase train kernels: {time.perf_counter() - t_cmp:.1f} s")
 
-    # --- one full-recipe step of 512 rays: the card against the CPU. As in
+    # --- one full-recipe step fused against the same step unfused, then
+    # one of 512 rays on the card against the CPU. As in
     # tests/test_torch_train.py test (g), every compared loss carries
     # weight: alpha / gamma 0.02 / 1.0 (at 10 / 20 the visibility weights
     # of this untrained field underflow and the warp loss is ~1e-7), mono
@@ -467,8 +637,8 @@ def train_phase() -> list[dict]:
     # 0) and ADMM variables with overlapping cameras (a fresh state's flags
     # are all off)
     t_cpu = time.perf_counter()
-    tc_chk = dataclasses.replace(tc, batch_log2=int(np.log2(N_CHECK_RAYS)), alpha=0.02,
-                                 gamma=1.0)
+    tc_w = dataclasses.replace(tc, alpha=0.02, gamma=1.0)
+    tc_chk = dataclasses.replace(tc_w, batch_log2=int(np.log2(N_CHECK_RAYS)))
     rng = np.random.default_rng(13)
 
     def small(*shape):
@@ -481,6 +651,9 @@ def train_phase() -> list[dict]:
     state = dataclasses.replace(state, admm=tile.AdmmState(
         shared_se3=small(TRAIN_CAMS, 6), delta_se3=small(TRAIN_CAMS, 6),
         overlap_flags=torch.arange(TRAIN_CAMS, device="cuda") % 4 != 1, rho=state.admm.rho))
+    fused_vs_unfused(state, data, tc_w)
+    print(f"phase train fused-vs-unfused: {time.perf_counter() - t_cpu:.1f} s")
+    t_cpu = time.perf_counter()
     ray_idx, locs = tile.sample_patches(torch.Generator().manual_seed(7), TRAIN_HW, TRAIN_HW,
                                         N_CHECK_RAYS // TRAIN_CAMS // 4)
     pix = locs[None].expand(TRAIN_CAMS, *locs.shape)
@@ -529,7 +702,7 @@ def train_phase() -> list[dict]:
             if not worst <= tol:
                 fail(f"the card's {name} gradient differs from the CPU's ({recipe})")
     print(f"phase train card-vs-cpu: {time.perf_counter() - t_cpu:.1f} s")
-    return [b5, b6]
+    return [b3, b4, b5, b6]
 
 
 def main() -> None:
@@ -547,8 +720,11 @@ def main() -> None:
     from scanerf_tpu_torch.render import renderer
     from scanerf_tpu_torch.utils import lie, rays as rays_mod
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    # plain versions and the unfused decoder's products in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    print("set torch.backends.cuda.matmul.allow_tf32 = False and "
+          "torch.backends.cudnn.allow_tf32 = False: every f32 product in full f32")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -584,90 +760,91 @@ def main() -> None:
         return renderer.render_image(scene, K, c2w, IMG_H, IMG_W, chunk=CHUNK,
                                      device="cuda", **kw, **RENDER_KW)
 
-    # --- warm-up renders, then the counted main path: both views -------
-    for c2w in views.values():
-        render(c2w)
-    counters = {"B1": sp.sample_fused, "B2": hw.pack, "B7": fr.hash_decode_fused}
-    stage_ms: dict[str, dict[str, float]] = {}
-    for c in counters.values():
-        c.launches = 0
-    for view, c2w in views.items():
-        events = []
+    # --- warm-up renders, then the counted main path: both views, in the
+    # fused configuration (B7) and the unfused one (B3 + the decoder) ----
+    counters = {True: {"B1": sp.sample_fused, "B2": hw.pack, "B7": fr.hash_decode_fused},
+                False: {"B1": sp.sample_fused, "B2": hw.pack, "B3": hw.lookup_fwd}}
+    stage_ms: dict[tuple, dict[str, float]] = {}
+    launches: dict[bool, dict[str, int]] = {}
+    for fuse in (True, False):
+        label = "" if fuse else " unfused"
+        for c2w in views.values():
+            render(c2w, fuse_decoder=fuse)
+        for c in counters[fuse].values():
+            c.launches = 0
+        for view, c2w in views.items():
+            events = []
 
-        def hook(name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((name, ev))
+            def hook(name):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append((name, ev))
 
-        start = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        img = render(c2w, stage_hook=hook)
-        wall = time.perf_counter() - t0
-        print(f"render_image {view} {IMG_W}x{IMG_H}: {wall * 1e3:.1f} ms, "
-              f"{n_rays / wall:.0f} rays/s, {n_chunks} chunks")
-        if img["rgb"].shape != (IMG_H, IMG_W, 3) or not np.isfinite(img["rgb"]).all() \
-                or not np.isfinite(img["depth"]).all():
-            fail(f"render_image ({view}) output has the wrong shape or non-finite values")
-        print(f"image {view}: rgb mean {img['rgb'].mean():.4f} std {img['rgb'].std():.4f}, "
-              f"depth mean {img['depth'].mean():.3f}")
-        split: dict[str, float] = {}
-        prev = start
-        for name, ev in events:
-            split[name] = split.get(name, 0.0) + prev.elapsed_time(ev)
-            prev = ev
-        stage_ms[view] = split
-    launches = {k: c.launches for k, c in counters.items()}
-    print(f"launches in the counted renders ({len(views)} views x {n_chunks} chunks): "
-          f"{launches}")
-    for k, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {k} was not launched on the render path")
+            start = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            img = render(c2w, fuse_decoder=fuse, stage_hook=hook)
+            wall = time.perf_counter() - t0
+            print(f"render_image {view}{label} {IMG_W}x{IMG_H}: {wall * 1e3:.1f} ms, "
+                  f"{n_rays / wall:.0f} rays/s, {n_chunks} chunks")
+            if img["rgb"].shape != (IMG_H, IMG_W, 3) or not np.isfinite(img["rgb"]).all() \
+                    or not np.isfinite(img["depth"]).all():
+                fail(f"render_image ({view}{label}) output has the wrong shape or non-finite "
+                     "values")
+            print(f"image {view}{label}: rgb mean {img['rgb'].mean():.4f} std "
+                  f"{img['rgb'].std():.4f}, depth mean {img['depth'].mean():.3f}")
+            split: dict[str, float] = {}
+            prev = start
+            for name, ev in events:
+                split[name] = split.get(name, 0.0) + prev.elapsed_time(ev)
+                prev = ev
+            stage_ms[view, fuse] = split
+        launches[fuse] = {k: c.launches for k, c in counters[fuse].items()}
+        print(f"launches in the counted renders{label} ({len(views)} views x {n_chunks} "
+              f"chunks): {launches[fuse]}")
+        for k, n in launches[fuse].items():
+            if n <= 0:
+                fail(f"kernel {k} was not launched on the render path{label}")
 
-    # --- per view: share of rays that meet occupied cells, throughput
-    # without the stage hook, device time by kernel (torch.profiler) ----
-    from torch.profiler import ProfilerActivity, profile
-
+    # --- per view: share of rays that meet occupied cells, the unfused
+    # render against the fused one, throughput without the stage hook,
+    # device time by kernel (torch.profiler) ------------------------------
     frame_rays = {}
     for view, c2w in views.items():
         xy = rays_mod.pixel_grid(IMG_H, IMG_W, device="cuda")
         pose = lie.invert(torch.as_tensor(c2w, device="cuda"))
         ro, rd = rays_mod.get_center_and_ray(xy, pose, torch.as_tensor(K, device="cuda"))
         frame_rays[view] = ro, rd
-        hits = sum(int(renderer.render_rays(scene, ro[i:i + CHUNK], rd[i:i + CHUNK],
-                                            device="cuda", **RENDER_KW)["fore_valid"].sum())
-                   for i in range(0, n_rays, CHUNK))
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            render(c2w)
-            walls.append(time.perf_counter() - t0)
+        hits, worst = 0, dict.fromkeys(dict(RENDER_TOL), 0.0)
+        for i in range(0, n_rays, CHUNK):
+            out_f, out_u = (renderer.render_rays(scene, ro[i:i + CHUNK], rd[i:i + CHUNK],
+                                                 device="cuda", fuse_decoder=fuse, **RENDER_KW)
+                            for fuse in (True, False))
+            hits += int(out_f["fore_valid"].sum())
+            for k in worst:
+                worst[k] = max(worst[k], float((out_f[k] - out_u[k]).abs().max()))
+        for k, tol in RENDER_TOL:
+            print(f"render {view}: max |unfused - fused| {k} {worst[k]:.3g} (tol {tol})")
+            if not worst[k] <= tol:
+                fail(f"the unfused render ({view}) differs from the fused one in {k}")
         print(f"view {view}: {hits} of {n_rays} rays meet occupied cells "
-              f"(hit share {hits / n_rays:.4f}); render_image (no stage hook): "
-              + ", ".join(f"{n_rays / w:.0f}" for w in walls) + " rays/s")
-        print(f"stages {view} (ms, whole frame): " + json.dumps(
-            {k: round(v, 3) for k, v in stage_ms[view].items()}))
-        print(f"rays/s {view} by device events: "
-              f"{n_rays / (sum(stage_ms[view].values()) / 1e3):.0f}")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            render(c2w)
-            prof_wall = (time.perf_counter() - t0) * 1e3
-        dev_us = {}
-        for ev in prof.events():
-            t_us = ev.time_range.elapsed_us() if ev.device_type.name == "CUDA" else 0
-            if t_us > 0:
-                dev_us[ev.name] = dev_us.get(ev.name, 0.0) + t_us
-        busy = sum(dev_us.values()) / 1e3
-        if busy > 0:
-            print(f"profiled frame {view}: {prof_wall:.1f} ms wall, {busy:.1f} ms device "
-                  f"busy ({100 * busy / prof_wall:.1f}%), idle {100 * (1 - busy / prof_wall):.1f}%")
-            for name, t_us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
-                print(f"  {t_us / 1e3:8.3f} ms  {name[:100]}")
-        else:
-            print(f"profiled frame {view}: the profiler recorded no device time (not measured)")
+              f"(hit share {hits / n_rays:.4f})")
+        for fuse in (True, False):
+            label = f"{view}{'' if fuse else ' unfused'}"
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                render(c2w, fuse_decoder=fuse)
+                walls.append(time.perf_counter() - t0)
+            split = stage_ms[view, fuse]
+            print(f"render_image {label} (no stage hook): "
+                  + ", ".join(f"{n_rays / w:.0f}" for w in walls) + " rays/s")
+            print(f"stages {label} (ms, whole frame): "
+                  + json.dumps({k: round(v, 3) for k, v in split.items()}))
+            print(f"rays/s {label} by device events: {n_rays / (sum(split.values()) / 1e3):.0f}")
+        profiled_idle(lambda: render(c2w), f"frame {view}")
 
     # --- each kernel's inputs at the render's shapes: the middle chunk of
     # the overhead view, where every ray meets occupied cells -----------
@@ -675,6 +852,8 @@ def main() -> None:
     mid = slice((n_rays - CHUNK) // 2, (n_rays + CHUNK) // 2)
     with Capture((sp, hw, fr)) as cap:
         out_mid = renderer.render_rays(scene, ro[mid], rd[mid], device="cuda", **RENDER_KW)
+        renderer.render_rays(scene, ro[mid], rd[mid], device="cuda", fuse_decoder=False,
+                             **RENDER_KW)
     print(f"capture chunk: {int(out_mid['fore_valid'].sum())} of {CHUNK} rays hit the tiles")
     torch.cuda.synchronize()
     rows = []
@@ -703,7 +882,7 @@ def main() -> None:
     rows.append(dict(
         name="cdf_sampler", route="cuda", source="scanerf_tpu_torch/csrc/sampler.cu",
         replaces="scanerf_tpu/ops/pallas/sampler.py:91",
-        launches=launches["B1"], max_abs_err=err_b1,
+        launches=launches[True]["B1"] + launches[False]["B1"], max_abs_err=err_b1,
         ms=timed(lambda: sp.sample_fused(*a, **kw), 20),
         plain_ms=timed(lambda: sp.sample_plain(*a, **kw), 3),
         bytes=b1_bytes, ops=b1_ops, library_ms=None))
@@ -728,7 +907,7 @@ def main() -> None:
     rows.append(dict(
         name="stream_pack", route="cuda", source="scanerf_tpu_torch/csrc/pack.cu",
         replaces="scanerf_tpu/ops/pallas/hash_encode.py:284",
-        launches=launches["B2"], max_abs_err=0.0,
+        launches=launches[True]["B2"] + launches[False]["B2"], max_abs_err=0.0,
         ms=timed(lambda: hw.pack(*a, **kw), 20),
         plain_ms=timed(lambda: hw.pack_plain(*a, **kw), 5),
         bytes=b2_bytes, ops=0, library_ms=lib_ms))
@@ -748,14 +927,14 @@ def main() -> None:
             fail(f"B7 ({label} tables) differs from the plain version by {errs[label]} > 1e-4")
     macs = 32 * 64 + 64 * 64 + 7 * 32 + 48 * 64 + 64 * 64 + 3 * 64
     b7_ops = live * hw.CHUNK * (2 * macs + LEVELS * 8 * 6)
-    b7_bytes = (stream.pts.numel() * 4 + stream.meta.numel() * 4 + NC * 4
+    b7_bytes = (stream.pts[:, 0:7].numel() * 4 + stream.meta.numel() * 4 + NC * 4
                 + stream.pts.shape[0] * hw.CHUNK * 16
                 + visited * LEVELS * hw.WB * hw.W * 2 * feats.element_size()
                 + kw["slabs"].numel() * 4)
     rows.append(dict(
         name="fused_hash_decode", route="cuda", source="scanerf_tpu_torch/csrc/fused_render.cu",
         replaces="scanerf_tpu/ops/pallas/fused_render.py:195",
-        launches=launches["B7"], max_abs_err=max(errs.values()),
+        launches=launches[True]["B7"], max_abs_err=max(errs.values()),
         ms=timed(lambda: fr.hash_decode_fused(*a, **kw), 5),
         plain_ms=timed(lambda: fr.hash_decode_fused_plain(*a[:6]), 1),
         bytes=b7_bytes, ops=b7_ops, library_ms=None))
@@ -765,25 +944,42 @@ def main() -> None:
           f"max err f32 {errs['f32']:.3g} bf16 {errs['bf16']:.3g} (tol 1e-4); "
           f"bf16 tables {bf16_ms:.3f} ms")
 
+    # B3 on the same chunk (the unfused render's stream), f32 and bf16 tables
+    a, kw = cap.args["B3"]
+    pts, meta, feats, res, NW = a
+    render_b3 = {"launches": launches[False]["B3"], "err": 0.0}
+    for label, table in (("f32", feats), ("bf16", scene16.features_flat)):
+        f_k = hw.lookup_fwd(pts, meta, table, res, NW)
+        f_p = hw.lookup_fwd_plain(pts, table, res, NW)
+        e, scale = float((f_k - f_p).abs().max()), float(f_p.abs().max())
+        render_b3["err"] = max(render_b3["err"], e)
+        ms = timed(lambda: hw.lookup_fwd(pts, meta, table, res, NW), 10)
+        print(f"B3 render chunk ({label} tables): {pts.shape[0]} chunks, max err {e:.3g}, "
+              f"largest entry {scale:.3g} (tol 1e-5 of it); {ms:.3f} ms")
+        if not (torch.isfinite(f_k).all() and e <= 1e-5 * scale):
+            fail(f"B3 ({label} tables) differs from its plain version on the render stream")
+
     # --- the card's render against the plain render on the CPU, per view
     sel = torch.linspace(0, n_rays - 1, N_PARITY_RAYS, device="cuda").long()
-    for view, (ro, rd) in frame_rays.items():
+    for (view, (ro, rd)), fuse in itertools.product(frame_rays.items(), (True, False)):
+        label = f"{view}{'' if fuse else ' unfused'}"
         ro_s, rd_s = ro[sel], rd[sel]
-        card = renderer.render_rays(scene, ro_s, rd_s, device="cuda", **RENDER_KW)
+        card = renderer.render_rays(scene, ro_s, rd_s, device="cuda", fuse_decoder=fuse,
+                                    **RENDER_KW)
         plain = renderer.render_rays(scene_cpu, ro_s.cpu(), rd_s.cpu(), device="cpu",
-                                     **RENDER_KW)
-        for k, tol in (("rgb", 1e-4), ("depth", 1e-3), ("T_left", 1e-4)):
+                                     fuse_decoder=fuse, **RENDER_KW)
+        for k, tol in RENDER_TOL:
             e = float((card[k].cpu() - plain[k]).abs().max())
-            print(f"render parity {view} {k}: max |card - cpu| {e:.3g} (tol {tol})")
+            print(f"render parity {label} {k}: max |card - cpu| {e:.3g} (tol {tol})")
             if not e <= tol:
-                fail(f"card render ({view}) differs from the CPU plain render in {k}: "
+                fail(f"card render ({label}) differs from the CPU plain render in {k}: "
                      f"{e} > {tol}")
         if not torch.equal(card["fore_valid"].cpu(), plain["fore_valid"]):
-            fail(f"card and CPU renders ({view}) disagree on which rays hit the scene")
+            fail(f"card and CPU renders ({label}) disagree on which rays hit the scene")
 
     print(f"phase render: {time.perf_counter() - t_start:.1f} s")
     t1 = time.perf_counter()
-    rows += train_phase()
+    rows += train_phase(render_b3)
     print(f"phase train: {time.perf_counter() - t1:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
     for r in rows:

@@ -1,6 +1,7 @@
-// Device code shared by the fused decode kernels (fused_render.cu: B7,
-// fused_train.cu: B5 and B6): the windowed hash gather read straight from the
-// flat [L, T*H*2] tables, and the ShallowMLP forward with its weights in a
+// Device code shared by the hash and decode kernels (hash_encode.cu: B3 and
+// B4, fused_render.cu: B7, fused_train.cu: B5 and B6): the windowed hash
+// gather read straight from the flat [L, T*H*2] tables and its pullback (the
+// table scatter and dL/du), and the ShallowMLP forward with its weights in a
 // decoder slab.
 //
 // Windowed hash: a stream row in window w reads, per level l, the 8 corner
@@ -121,6 +122,24 @@ __device__ __forceinline__ float corner_weight(const Corners& k, int c) {
   return (cx ? k.ox : 1.0f - k.ox) * (cy ? k.oy : 1.0f - k.oy) * (cz ? k.oz : 1.0f - k.oz);
 }
 
+// Feature pair of one row in window w at level l: the trilinear sum of the 8
+// corner entries of the level's table tl.
+template <typename TT>
+__device__ __forceinline__ float2 encode_level(const TT* __restrict__ tl, const int* res,
+                                               int l, int w, float ux, float uy,
+                                               float uz) {
+  const Corners k = corner_setup(res, l, ux, uy, uz);
+  float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float wt = corner_weight(k, c);
+    const float2 v = load_pair(tl, corner_entry(k, w, c));
+    a0 = fmaf(wt, v.x, a0);
+    a1 = fmaf(wt, v.y, a1);
+  }
+  return make_float2(a0, a1);
+}
+
 // Features of one row in window w: f[2l], f[2l+1] for l < L, zero above.
 template <typename TT>
 __device__ void encode(const TT* __restrict__ table, long long row_stride,
@@ -131,19 +150,41 @@ __device__ void encode(const TT* __restrict__ table, long long row_stride,
     f[2 * l] = 0.0f;
     f[2 * l + 1] = 0.0f;
     if (l >= L) continue;
-    const Corners k = corner_setup(res, l, ux, uy, uz);
-    const TT* tl = table + (size_t)l * row_stride;
-    float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float wt = corner_weight(k, c);
-      const float2 v = load_pair(tl, corner_entry(k, w, c));
-      a0 = fmaf(wt, v.x, a0);
-      a1 = fmaf(wt, v.y, a1);
-    }
-    f[2 * l] = a0;
-    f[2 * l + 1] = a1;
+    const float2 a = encode_level<TT>(table + (size_t)l * row_stride, res, l, w, ux, uy, uz);
+    f[2 * l] = a.x;
+    f[2 * l + 1] = a.y;
   }
+}
+
+// Pullback of one row's feature pair at level l under its cotangent (g0, g1):
+// adds weight * (g0, g1) at the level's 8 corner entries of the dense table
+// gradient dl (atomicAdd; entries no row touches keep their zero), and sets
+// (du0, du1, du2) to this level's dL/du from the regathered corners of tl.
+__device__ __forceinline__ void scatter_level(const float* __restrict__ tl,
+                                              float* __restrict__ dl, const int* res,
+                                              int l, int w, float ux, float uy, float uz,
+                                              float g0, float g1, float& du0, float& du1,
+                                              float& du2) {
+  const Corners k = corner_setup(res, l, ux, uy, uz);
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int cn = 0; cn < 8; ++cn) {
+    const bool cx = (cn >> 2) & 1, cy = (cn >> 1) & 1, cz = cn & 1;
+    const size_t ent = corner_entry(k, w, cn);
+    const float fx = cx ? k.ox : 1.0f - k.ox, fy = cy ? k.oy : 1.0f - k.oy,
+                fz = cz ? k.oz : 1.0f - k.oz;
+    const float wt = fx * fy * fz;
+    atomicAdd(dl + 2 * ent, wt * g0);
+    atomicAdd(dl + 2 * ent + 1, wt * g1);
+    const float2 v = load_pair(tl, ent);
+    const float dot = g0 * v.x + g1 * v.y;
+    s0 += (cx ? 1.0f : -1.0f) * fy * fz * dot;
+    s1 += (cy ? 1.0f : -1.0f) * fx * fz * dot;
+    s2 += (cz ? 1.0f : -1.0f) * fx * fy * dot;
+  }
+  du0 = s0 * ((float)res[3 * l] - 1.0f);
+  du1 = s1 * ((float)res[3 * l + 1] - 1.0f);
+  du2 = s2 * ((float)res[3 * l + 2] - 1.0f);
 }
 
 // Degree-3 SH of the unit direction (x, y, z) into sh[0..15].

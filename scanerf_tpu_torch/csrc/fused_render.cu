@@ -16,7 +16,8 @@
 // decode zero features; chunks with no real row write zeros and stop.
 //
 // The gather and the decoder forward live in decoder.cuh (shared with the
-// training kernels B5/B6 in fused_train.cu).
+// training kernels B5/B6 in fused_train.cu; the gather also with B3 in
+// hash_encode.cu).
 //
 // Design: one block of 256 threads per 1024-row chunk, 4 rows a thread. The
 // chunk's tile decoder slab (56 KB) is staged in shared memory once; every

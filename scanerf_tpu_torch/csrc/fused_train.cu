@@ -24,7 +24,8 @@
 // cotangents (softplus, sigmoid, Gaussian and SH-16 derivatives, the
 // direction normalisation d / (|d| + 1e-8)) gives the features' cotangent,
 // which is scattered into the dense, zeroed table gradient with atomicAdd
-// over 8 corners x 16 levels (entries no row touches stay zero), and the
+// over 8 corners x 16 levels (entries no row touches stay zero; the scatter is
+// decoder.cuh::scatter_level, shared with B4 in hash_encode.cu), and the
 // positions' cotangent through the trilinear weights (dpts rows 0-2) and
 // the directions' (rows 4-6). The whole tile runs each layer as a small
 // product over its 32 rows, with every activation in shared memory
@@ -437,31 +438,10 @@ train_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
         const int t = r0 + r;
         const int w = (int)prow[3 * CHUNK + t];
         float du0 = 0.0f, du1 = 0.0f, du2 = 0.0f;
-        if (w < nw) {
-          const float ux = prow[t], uy = prow[CHUNK + t], uz = prow[2 * CHUNK + t];
-          const Corners k = corner_setup(res, l, ux, uy, uz);
-          const float g0 = D2[(2 * l) * RS + r], g1 = D2[(2 * l + 1) * RS + r];
-          const float* tl = table + (size_t)l * row_stride;
-          float* dl = dtab + (size_t)l * row_stride;
-#pragma unroll
-          for (int cn = 0; cn < 8; ++cn) {
-            const bool cx = (cn >> 2) & 1, cy = (cn >> 1) & 1, cz = cn & 1;
-            const size_t ent = corner_entry(k, w, cn);
-            const float fx = cx ? k.ox : 1.0f - k.ox, fy = cy ? k.oy : 1.0f - k.oy,
-                        fz = cz ? k.oz : 1.0f - k.oz;
-            const float wt = fx * fy * fz;
-            atomicAdd(dl + 2 * ent, wt * g0);
-            atomicAdd(dl + 2 * ent + 1, wt * g1);
-            const float2 v = load_pair(tl, ent);
-            const float dot = g0 * v.x + g1 * v.y;
-            du0 += (cx ? 1.0f : -1.0f) * fy * fz * dot;
-            du1 += (cy ? 1.0f : -1.0f) * fx * fz * dot;
-            du2 += (cz ? 1.0f : -1.0f) * fx * fy * dot;
-          }
-          du0 *= (float)res[3 * l] - 1.0f;
-          du1 *= (float)res[3 * l + 1] - 1.0f;
-          du2 *= (float)res[3 * l + 2] - 1.0f;
-        }
+        if (w < nw)
+          scatter_level(table + (size_t)l * row_stride, dtab + (size_t)l * row_stride, res,
+                        l, w, prow[t], prow[CHUNK + t], prow[2 * CHUNK + t],
+                        D2[(2 * l) * RS + r], D2[(2 * l + 1) * RS + r], du0, du1, du2);
         ZD0[(3 * l) * RS + r] = du0;
         ZD0[(3 * l + 1) * RS + r] = du1;
         ZD0[(3 * l + 2) * RS + r] = du2;

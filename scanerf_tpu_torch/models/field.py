@@ -9,12 +9,14 @@ alpha(step) = clip(step / 10000 * 8 + 8, 0, 16); fg samples follow the
 occupancy grid over the inner bbox, bg samples are inverse-z beyond the
 doubled bbox. Invalid rays are masked, not compressed.
 
-``render_rays`` runs the windowed sorted-stream path with the fused
-decoder: the fg and bg points of all rays form one stream (``sort_pack``,
-B2), the fused hash + decoder kernels (B5 forward, B6 backward) decode it,
-and only the 8 columns return to ray order. Options of the JAX function
-that need what the port does not have yet raise ``NotImplementedError``
-naming their ROADMAP item.
+``render_rays`` runs the windowed sorted-stream path: the fg and bg
+points of all rays form one stream (``sort_pack``, B2), which the fused
+hash + decoder kernels decode (B5 forward, B6 backward; the default) or,
+with ``fused_decoder=False``, the hash lookup (B3 forward, B4 backward)
+followed by the ShallowMLP in PyTorch (``torch.matmul``, as the JAX
+package leaves it to XLA); only the 8 columns return to ray order.
+Options of the JAX function that need what the port does not have yet
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -117,6 +119,16 @@ def weight_feature(step: torch.Tensor) -> torch.Tensor:
     return (1.0 - torch.cos((alpha - k).clamp(0.0, 1.0) * math.pi)) / 2.0
 
 
+def decode_columns(decoder: dict, feats, dirs, wf) -> torch.Tensor:
+    """The unfused decode of hash features [N, 32] with view dirs [N, 3]
+    under BARF weights ``wf`` [16] -> the 8 columns the fused kernels
+    write: sigma, diffuse x3, tint * specular x3 (premultiplied) and the
+    specular square's channel mean."""
+    dec = decoder_lib.apply_decoder(decoder, feats, dirs, wf.repeat_interleave(2))
+    return torch.cat([dec["sigma"], dec["diffuse"], dec["tint"] * dec["specular"],
+                      (dec["specular"] ** 2).mean(dim=-1, keepdim=True)], dim=-1)
+
+
 def _composite_premul(out: dict, z, d, rays_d, valid, infinity: bool, train: bool) -> dict:
     """Composite of the stream's 8 columns (tint * specular premultiplied,
     the specular square's channel mean carried in one column)."""
@@ -157,21 +169,16 @@ def _compose_fg_bg(fg: dict, bg: dict, rays_o, rays_d, train: bool) -> dict:
     return out
 
 
-def _check_options(H, backend, table_shards, bwd_onehot_bf16, fused_decoder,
-                   stochastic_grad, bg_z):
+def _check_options(H, backend, table_shards, bwd_onehot_bf16, stochastic_grad, bg_z):
     if backend not in ("xla", "windowed"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "xla" or H < hw.W * hw.WB:
         raise NotImplementedError(
             "the global-hash backend (backend='xla', tables below 2^14 entries) "
             "is not ported yet: ROADMAP.md queue A, item 'Hash encoders'")
-    if not fused_decoder:
-        raise NotImplementedError(
-            "fused_decoder=False needs the unfused hash kernels B3/B4: ROADMAP.md "
-            "queue B, items B3 and B4")
     if table_shards > 1:
         raise NotImplementedError("sharded tables are not ported yet: ROADMAP.md "
-                                  "queue A, item 'Multi-device'")
+                                  "queue A, item 'Multi-device and opt-in knobs'")
     if stochastic_grad:
         raise NotImplementedError("the stochastic-corner gradient belongs to the "
                                   "global-hash backend: ROADMAP.md queue A, item "
@@ -191,14 +198,14 @@ def render_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
                 bwd_onehot_bf16: bool = False, fused_decoder: bool = True,
                 compact_dead: bool = True, stage_hook=None) -> dict:
     """fg + bg render of rays [N, 3] (unnormalized directions) through the
-    windowed sorted stream with the fused decoder. ``step`` is an f32
+    windowed sorted stream, with the fused decoder or, for
+    ``fused_decoder=False``, the lookup then the decoder. ``step`` is an f32
     scalar tensor (BARF annealing). ``stage_hook(name)``, when given, is
     called after each stage (sample, sort_pack, decode, unsort, composite)
     for timing. Differentiable in the field's params and in rays_o /
     rays_d (through the sample positions and view dirs)."""
     H = params.features.shape[1] // N_FEATURES
-    _check_options(H, backend, table_shards, bwd_onehot_bf16, fused_decoder,
-                   stochastic_grad, bg_z)
+    _check_options(H, backend, table_shards, bwd_onehot_bf16, stochastic_grad, bg_z)
     B = rays_o.shape[0]
     Sf, Sb = num_fg_sample, num_bg_sample
     zf, df, vf = sampling.sample_points_grid(
@@ -232,9 +239,15 @@ def render_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
                           (~vb)[:, None].expand(B, Sb).reshape(-1)])
     stream = hw.sort_pack(x, dirs, H, dead)
     _mark(stage_hook, "sort_pack")
-    slab = ft.pack_train_slab(params.decoder, weight_feature(step))
-    cols = ft.hash_decode_train(stream.pts, stream.meta, params.features, state.resolutions,
-                                slab)
+    if fused_decoder:
+        slab = ft.pack_train_slab(params.decoder, weight_feature(step))
+        cols = ft.hash_decode_train(stream.pts, stream.meta, params.features,
+                                    state.resolutions, slab)
+    else:
+        feats = hw.hash_lookup_sorted(stream.pts, stream.meta, params.features,
+                                      state.resolutions)  # [Np, 32]
+        dirs_s = stream.pts[:, 4:7, :].permute(0, 2, 1).reshape(feats.shape[0], 3)
+        cols = decode_columns(params.decoder, feats, dirs_s, weight_feature(step))
     _mark(stage_hook, "decode")
     rows = hw.unsort_rows(cols, stream.pidp, x.shape[0])
     _mark(stage_hook, "unsort")

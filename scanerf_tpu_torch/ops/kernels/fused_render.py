@@ -26,7 +26,7 @@ import torch
 
 from scanerf_tpu_torch import _build
 from scanerf_tpu_torch.models import decoder as decoder_lib
-from scanerf_tpu_torch.ops.kernels.hash_encode import CHUNK, W, SortedStream, encode_rows
+from scanerf_tpu_torch.ops.kernels.hash_encode import CHUNK, W, lookup_fwd_plain
 
 # decoder slab layout (f32 offsets; every matrix row-major [out, in] and
 # 16-byte aligned for float4 reads). Mirrored in csrc/fused_render.cu.
@@ -64,18 +64,6 @@ def pack_decoder_slabs(decoders: dict) -> torch.Tensor:
     return slab
 
 
-def _stream_features(stream: SortedStream, features, resolutions, NW: int):
-    """[Np, L*2] f32 hash features of every stream row (zero for rows in
-    the sentinel window NW)."""
-    pts = stream.pts
-    u = pts[:, 0:3, :].permute(0, 2, 1).reshape(-1, 3)
-    wid = pts[:, 3, :].reshape(-1).to(torch.int64)
-    real = wid < NW
-    feats = encode_rows(u, torch.where(real, wid, torch.zeros_like(wid)), features,
-                        resolutions)
-    return torch.where(real[:, None], feats, torch.zeros_like(feats))
-
-
 def hash_decode_fused_plain(stream, chunk_tids, features, resolutions,
                             decoders, NW: int) -> torch.Tensor:
     """Plain PyTorch version of B7 -> [Np, 4] (sigma, premultiplied rgb).
@@ -83,7 +71,7 @@ def hash_decode_fused_plain(stream, chunk_tids, features, resolutions,
     ``decoders`` is the stacked param dict (leaves [T, ...]); ``NW`` the
     window count of the stacked tables (the sentinel window id)."""
     NC = stream.pts.shape[0]
-    feats = _stream_features(stream, features, resolutions, NW)
+    feats = lookup_fwd_plain(stream.pts, features, resolutions, NW)
     dirs = stream.pts[:, 4:7, :].permute(0, 2, 1)  # [NC, CHUNK, 3]
     tid = chunk_tids.to(torch.int64)
     dec = {name: {"w": p["w"][tid], "b": p["b"][tid][:, None, :]}

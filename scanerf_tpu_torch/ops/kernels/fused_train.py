@@ -44,7 +44,7 @@ from scanerf_tpu_torch.models.decoder import gaussian_act, softplus
 from scanerf_tpu_torch.ops.kernels.fused_render import (
     B_DIR0, B_DIR1, B_DIR2, B_HEAD, B_SP0, B_SP1, DIR0_W, DIR1_W, DIR2_W,
     HEAD_W, PSLAB, SP0_W, SP1_W)
-from scanerf_tpu_torch.ops.kernels.hash_encode import CHUNK, W, encode_rows
+from scanerf_tpu_torch.ops.kernels.hash_encode import CHUNK, W, check_tensor, lookup_fwd_plain
 from scanerf_tpu_torch.utils.sh import sh_encoding
 
 # (offset, [out, in] shape) of each weight matrix in the slab, then biases
@@ -106,13 +106,8 @@ def train_fwd_plain(pts, meta, features, resolutions, pslab, NW: int):
     CHUNK]). ``NW`` is the table's window count (the sentinel window)."""
     NC = pts.shape[0]
     L = resolutions.shape[0]
-    u = pts[:, 0:3, :].permute(0, 2, 1).reshape(-1, 3)
-    wid = pts[:, 3, :].reshape(-1).to(torch.int64)
     live = (meta[:, :, 2].sum(dim=1) > 0).repeat_interleave(CHUNK)  # [Np]
-    real = wid < NW  # every row of a chunk that is not live is a sentinel
-    feats = encode_rows(u, torch.where(real, wid, torch.zeros_like(wid)), features,
-                        resolutions)
-    feats = torch.where(real[:, None], feats, torch.zeros_like(feats))
+    feats = lookup_fwd_plain(pts, features, resolutions, NW)
     dirs = pts[:, 4:7, :].permute(0, 2, 1).reshape(-1, 3)
     cols = decode_train_rows(pslab, feats, dirs)
     cols = torch.where(live[:, None], cols, torch.zeros_like(cols))
@@ -132,21 +127,14 @@ def train_bwd_plain(pts, meta, features, resolutions, pslab, feats, g, NW: int):
         return torch.autograd.grad(cols, (p, f, s), g)
 
 
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous() \
-            or t.device != device:
-        raise ValueError(f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
-                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-
-
 def _check_stream(pts, meta, features, resolutions, pslab, NW):
     dev = pts.device
     NC, L = pts.shape[0], resolutions.shape[0]
-    _check("pts", pts, torch.float32, (NC, 8, CHUNK), dev)
-    _check("meta", meta, torch.int32, (NC, CHUNK // 128, 4), dev)
-    _check("resolutions", resolutions, torch.int32, (L, 3), dev)
-    _check("pslab", pslab, torch.float32, (PSLAB,), dev)
-    _check("features", features, torch.float32, (L, features.shape[1]), dev)
+    check_tensor("pts", pts, torch.float32, (NC, 8, CHUNK), dev)
+    check_tensor("meta", meta, torch.int32, (NC, CHUNK // 128, 4), dev)
+    check_tensor("resolutions", resolutions, torch.int32, (L, 3), dev)
+    check_tensor("pslab", pslab, torch.float32, (PSLAB,), dev)
+    check_tensor("features", features, torch.float32, (L, features.shape[1]), dev)
     if features.shape[1] != NW * W * 2 or L != 16:
         raise ValueError(f"features {tuple(features.shape)}: want [16, {NW * W * 2}] "
                          "(training tables are f32, 16 levels)")
@@ -198,8 +186,8 @@ def train_bwd(pts, meta, features, resolutions, pslab, feats, g, NW: int):
         raise ValueError(f"unsupported device {pts.device}")
     _check_stream(pts, meta, features, resolutions, pslab, NW)
     NC, L = pts.shape[0], resolutions.shape[0]
-    _check("feats", feats, torch.float32, (NC, L, 2, CHUNK), pts.device)
-    _check("g", g, torch.float32, (NC * CHUNK, 8), pts.device)
+    check_tensor("feats", feats, torch.float32, (NC, L, 2, CHUNK), pts.device)
+    check_tensor("g", g, torch.float32, (NC * CHUNK, 8), pts.device)
     dpts = torch.empty_like(pts)
     d_features = torch.zeros_like(features)
     d_pslab = torch.zeros_like(pslab)

@@ -1,12 +1,13 @@
-"""Windowed multiresolution hash: index math, the sorted stream, and B2.
+"""Windowed multiresolution hash: index math, the sorted stream, B2, and
+the windowed lookup B3 with its backward B4.
 
-Counterpart of ``scanerf_tpu/ops/pallas/hash_encode.py:130-822``. Each
-level's table of H entries is split into NW = H / 512 windows; a point's
-window is a raster cell of the warped [0, 1]^3 tile domain, and its 8
-corner slots are a folded prime-XOR hash inside that window. The
-renderer sorts its (point, tile) rows by window into a ``SortedStream``
-whose 1024-row chunks each lie inside one 32-window block, so that one
-tile's decoder serves a whole chunk.
+Counterpart of ``scanerf_tpu/ops/pallas/hash_encode.py:130-822`` and
+``:1210-1363``. Each level's table of H entries is split into NW = H /
+512 windows; a point's window is a raster cell of the warped [0, 1]^3
+tile domain, and its 8 corner slots are a folded prime-XOR hash inside
+that window. The renderer sorts its (point, tile) rows by window into a
+``SortedStream`` whose 1024-row chunks each lie inside one 32-window
+block, so that one tile's decoder serves a whole chunk.
 
 B2, the stream pack, replaces the Pallas kernel
 ``hash_encode.py::_pack_kernel`` (launched by ``_sort_pack_sorted`` at
@@ -18,6 +19,17 @@ The window sort itself stays ``torch.sort(stable=True)``, like the
 ``lax.sort`` before it: a stable sort gives the same order, so the
 stream equals the JAX stream field by field. Point ids are int32 here
 (the TPU kernel carried them as f32, exact only below 2^24).
+
+B3 and B4, the lookup of the unfused configuration, replace the Pallas
+kernels ``hash_encode.py::_fwd_kernel`` (launched by ``_run_fwd`` at
+hash_encode.py:1231) and ``_bwd_kernel`` (``_run_bwd``, :1268), in
+``csrc/hash_encode.cu``. ``hash_lookup_sorted`` is a
+``torch.autograd.Function`` whose forward is B3 (the stream's features
+[Np, L*2] f32, zero on sentinel rows; f32 or bf16 tables) and whose
+backward is B4 (the table gradient by atomicAdd into a zeroed dense
+buffer, so unvisited blocks stay exactly zero, and the analytic dL/du in
+dpts rows 0-2; f32 tables only). Device memory bounds B3; B4's f32
+atomics are expected to set its time (see the source's note).
 """
 
 from __future__ import annotations
@@ -80,6 +92,22 @@ _CORNERS = np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
                     -1).reshape(8, 3)  # x-major: 000 001 ... 111
 
 
+def _level_corners(u, wid, res_l):
+    """One level's corners of rows u [N, 3] in [0, 1]^3 in windows ``wid``
+    [N] int64 at resolution ``res_l`` [3]: the 8 corner entries' indices
+    into the level's [nW*512, F] table [N, 8] and their per-axis trilinear
+    factors [N, 8, 3], whose product over the axes is the corner's
+    weight."""
+    corners = torch.as_tensor(_CORNERS, device=u.device)
+    cf = corners.to(u.dtype)
+    v = u * (res_l.to(u.dtype) - 1.0)
+    bl = torch.floor(v)
+    off = v - bl
+    ic = (bl.to(torch.int64) & _MASK32)[:, None, :] + corners[None]
+    idx = wid[:, None] * W + slot_hash(ic[..., 0], ic[..., 1], ic[..., 2])
+    return idx, cf[None] * off[:, None, :] + (1 - cf[None]) * (1 - off[:, None, :])
+
+
 def encode_rows(u, wid, features, resolutions) -> torch.Tensor:
     """Windowed hash features of rows u [N, 3] in [0, 1]^3 whose window
     ids ``wid`` [N] index the windows of ``features`` (flat [L, nW*512*F]
@@ -89,17 +117,10 @@ def encode_rows(u, wid, features, resolutions) -> torch.Tensor:
     features = as_3d(features)
     L, _, F = features.shape
     wid = wid.to(torch.int64)
-    corners = torch.as_tensor(_CORNERS, device=u.device)
-    cf = corners.to(u.dtype)
     out = []
     for lvl in range(L):
-        v = u * (resolutions[lvl].to(u.dtype) - 1.0)
-        bl = torch.floor(v)
-        off = v - bl
-        ic = (bl.to(torch.int64) & _MASK32)[:, None, :] + corners[None]
-        idx = wid[:, None] * W + slot_hash(ic[..., 0], ic[..., 1], ic[..., 2])
-        wgt = torch.prod(cf[None] * off[:, None, :]
-                         + (1 - cf[None]) * (1 - off[:, None, :]), dim=-1)
+        idx, fac = _level_corners(u, wid, resolutions[lvl])
+        wgt = torch.prod(fac, dim=-1)
         gathered = features[lvl][idx].to(torch.float32)  # [N, 8, F]
         out.append((wgt[..., None] * gathered).sum(dim=1))
     return torch.stack(out, dim=1).reshape(u.shape[0], L * F)
@@ -166,6 +187,15 @@ def pack_plain(src, pids, desc, NC, pad_wid):
     pts = torch.cat([cols, torch.zeros_like(cols[:, :1])], dim=1)
     pidp = torch.where(real, pids[idx], torch.full_like(idx, N).to(pids.dtype))
     return pts, pidp.reshape(NC * CHUNK)
+
+
+def check_tensor(name, t, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (what a kernel's pointer arithmetic assumes)."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous() \
+            or t.device != device:
+        raise ValueError(f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _pack_fn():
@@ -321,3 +351,175 @@ def unsort_rows(vals: torch.Tensor, pidp: torch.Tensor, N: int) -> torch.Tensor:
     pid is N, land in a dropped extra row). Differentiable: the backward
     gathers by ``pidp`` (hash_encode.py:804-819), pad rows get zero."""
     return _UnsortRows.apply(vals, pidp, N)
+
+
+# ---------------------------------------------------------------------------
+# B3 / B4: the windowed lookup over the sorted stream and its backward
+# ---------------------------------------------------------------------------
+
+def _stream_rows(pts, NW: int):
+    """Per stream row: u [Np, 3], window id [Np] (0 on sentinel rows) and
+    whether the row is real (window below ``NW``)."""
+    u = pts[:, 0:3, :].permute(0, 2, 1).reshape(-1, 3)
+    wid = pts[:, 3, :].reshape(-1).to(torch.int64)
+    real = wid < NW
+    return u, torch.where(real, wid, torch.zeros_like(wid)), real
+
+
+def lookup_fwd_plain(pts, features, resolutions, NW: int) -> torch.Tensor:
+    """Plain PyTorch version of B3: [Np, L*2] f32 hash features of every
+    row of the stream ``pts`` [NC, 8, CHUNK] (zero on rows in the sentinel
+    window ``NW``, so on every row of an all-sentinel chunk)."""
+    u, wid, real = _stream_rows(pts, NW)
+    feats = encode_rows(u, wid, features, resolutions)
+    return torch.where(real[:, None], feats, torch.zeros_like(feats))
+
+
+def lookup_bwd_plain(pts, features, resolutions, g, NW: int):
+    """Plain PyTorch version of B4: the cotangents of ``lookup_fwd_plain``
+    under ``g`` [Np, L*2], written out (not by autograd) -> (dpts [NC, 8,
+    CHUNK] with dL/du in rows 0-2 and zeros in rows 3-7, d_features like
+    ``features``, f32). The table gradient is an ``index_add_`` of each
+    corner's trilinear weight times the row's cotangent pair; dL/du sums,
+    per level and corner, the derivative of the weight along each axis
+    times (resolution - 1) times the cotangent's dot with the corner's
+    features."""
+    from scanerf_tpu_torch.ops.hash_encode import as_3d
+
+    f3 = as_3d(features)
+    L = f3.shape[0]
+    u, wid, real = _stream_rows(pts, NW)
+    g3 = torch.where(real[:, None], g, torch.zeros_like(g)).reshape(-1, L, 2)
+    sign = 2.0 * torch.as_tensor(_CORNERS, device=u.device).to(u.dtype) - 1.0  # [8, 3]
+    d3 = torch.zeros(f3.shape, dtype=torch.float32, device=u.device)
+    du = torch.zeros_like(u)
+    for lvl in range(L):
+        idx, fac = _level_corners(u, wid, resolutions[lvl])  # [Np, 8], [Np, 8, 3]
+        scale = resolutions[lvl].to(u.dtype) - 1.0
+        wgt = torch.prod(fac, dim=-1)  # [Np, 8]
+        gl = g3[:, lvl]  # [Np, 2]
+        d3[lvl].index_add_(0, idx.reshape(-1), (wgt[..., None] * gl[:, None, :]).reshape(-1, 2))
+        dot = (f3[lvl][idx].to(torch.float32) * gl[:, None, :]).sum(dim=-1)  # [Np, 8]
+        others = torch.stack([fac[..., 1] * fac[..., 2], fac[..., 0] * fac[..., 2],
+                              fac[..., 0] * fac[..., 1]], dim=-1)  # d wgt / d off
+        du = du + (sign[None] * others * dot[..., None]).sum(dim=1) * scale
+    NC = pts.shape[0]
+    dpts = torch.zeros_like(pts)
+    dpts[:, 0:3, :] = du.reshape(NC, CHUNK, 3).permute(0, 2, 1)
+    return dpts, d3.reshape(features.shape)
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _lookup_fn(name, argtypes):
+    f = getattr(_build.load("hash_encode"), name)
+    f.restype = ctypes.c_int
+    f.argtypes = argtypes
+    return f
+
+
+def _check_lookup(pts, meta, features, resolutions, NW: int):
+    dev = pts.device
+    NC, L = pts.shape[0], resolutions.shape[0]
+    check_tensor("pts", pts, torch.float32, (NC, 8, CHUNK), dev)
+    check_tensor("meta", meta, torch.int32, (NC, SUBT, 4), dev)
+    check_tensor("resolutions", resolutions, torch.int32, (L, 3), dev)
+    if features.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"features must be f32 or bf16, got {features.dtype}")
+    check_tensor("features", features, features.dtype, (L, features.shape[1]), dev)
+    if features.shape[1] != NW * W * 2 or not 1 <= L <= 16:
+        raise ValueError(f"features {tuple(features.shape)}: want [L <= 16, {NW * W * 2}]")
+
+
+def lookup_fwd(pts, meta, features, resolutions, NW: int) -> torch.Tensor:
+    """B3 wrapper -> feats [Np, L*2] f32 in stream order. CPU tensors take
+    ``lookup_fwd_plain``; CUDA tensors launch the kernel. ``features`` is
+    the flat [L, NW*512*2] f32 or bf16 table (stack); ``NW`` its window
+    count, the sentinel window id."""
+    if pts.device.type == "cpu":
+        return lookup_fwd_plain(pts, features, resolutions, NW)
+    if pts.device.type != "cuda":
+        raise ValueError(f"unsupported device {pts.device}")
+    _check_lookup(pts, meta, features, resolutions, NW)
+    NC, L = pts.shape[0], resolutions.shape[0]
+    out = torch.empty((NC * CHUNK, 2 * L), dtype=torch.float32, device=pts.device)
+    f = _lookup_fn("scanerf_lookup_fwd", [_P, _P, _P, _I, _LL, _I, _P, _I, _I, _P, _P])
+    P = _build.ptr
+    err = f(P(pts), P(meta), P(features), int(features.dtype == torch.bfloat16),
+            features.shape[1], L, P(resolutions), NW, NC, P(out), _build.stream_ptr(pts))
+    _build.check(err, "scanerf_lookup_fwd")
+    lookup_fwd.launches += 1
+    return out
+
+
+lookup_fwd.launches = 0
+
+
+def lookup_bwd(pts, meta, features, resolutions, g, NW: int):
+    """B4 wrapper -> (dpts [NC, 8, CHUNK], d_features [L, NW*512*2] f32).
+    CPU tensors take ``lookup_bwd_plain``; CUDA tensors launch the kernel.
+    Tables must be f32 (bf16 tables are for inference)."""
+    if features.dtype != torch.float32:
+        raise ValueError(f"the lookup's backward needs f32 tables, got {features.dtype}")
+    if pts.device.type == "cpu":
+        return lookup_bwd_plain(pts, features, resolutions, g, NW)
+    if pts.device.type != "cuda":
+        raise ValueError(f"unsupported device {pts.device}")
+    _check_lookup(pts, meta, features, resolutions, NW)
+    NC, L = pts.shape[0], resolutions.shape[0]
+    check_tensor("g", g, torch.float32, (NC * CHUNK, 2 * L), pts.device)
+    dpts = torch.empty_like(pts)
+    d_features = torch.zeros_like(features)
+    f = _lookup_fn("scanerf_lookup_bwd", [_P, _P, _P, _LL, _I, _P, _P, _I, _I, _P, _P, _P])
+    P = _build.ptr
+    err = f(P(pts), P(meta), P(features), features.shape[1], L, P(resolutions), P(g), NW,
+            NC, P(d_features), P(dpts), _build.stream_ptr(pts))
+    _build.check(err, "scanerf_lookup_bwd")
+    lookup_bwd.launches += 1
+    return dpts, d_features
+
+
+lookup_bwd.launches = 0
+
+
+class _HashLookupSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pts, meta, features, resolutions):
+        NW = features.shape[1] // (2 * W)
+        ctx.save_for_backward(pts, meta, features, resolutions)
+        ctx.nw = NW
+        return lookup_fwd(pts, meta, features, resolutions, NW)
+
+    @staticmethod
+    def backward(ctx, g):
+        pts, meta, features, resolutions = ctx.saved_tensors
+        dpts, d_features = lookup_bwd(pts, meta, features, resolutions, g.contiguous(),
+                                      ctx.nw)
+        return dpts, None, d_features, None
+
+
+def hash_lookup_sorted(pts, meta, features, resolutions) -> torch.Tensor:
+    """Windowed hash features of a padded sorted stream (``pts``/``meta``
+    from ``sort_pack`` or ``sort_pack_tables``) over the flat [L, NW*512*2]
+    table (stack) -> [Np, L*2] f32 in stream order: B3 forward, B4
+    backward. Differentiable in pts (rows 0-2: dL/du; the view directions
+    in rows 4-6 get no cotangent here) and in f32 tables. Unlike the JAX
+    function it takes no ``visited`` blocks: the scatter into a zeroed
+    gradient leaves unvisited blocks zero by itself."""
+    return _HashLookupSorted.apply(pts, meta, features, resolutions)
+
+
+def hash_encode_windowed(points, features, resolutions) -> torch.Tensor:
+    """Original-order windowed hash (``sort_pack`` -> ``hash_lookup_sorted``
+    -> ``unsort_rows``): points [N, 3] in [-2, 2], one table flat [L, H*2]
+    or [L, H, 2] (H a power of two >= 2^14), resolutions [L, 3] ->
+    [N, L*2] f32, differentiable in points and f32 tables."""
+    from scanerf_tpu_torch.ops.hash_encode import as_3d
+
+    N = points.shape[0]
+    L, H, _ = as_3d(features).shape
+    stream = sort_pack(points, torch.zeros_like(points), H)
+    feats = hash_lookup_sorted(stream.pts, stream.meta, features.reshape(L, H * 2),
+                               resolutions)
+    return unsort_rows(feats, stream.pidp, N)

@@ -11,14 +11,15 @@ chunks of rays; per chunk:
    tile) slot becomes one row of a single window-sorted stream (B2,
    ``ops/kernels/hash_encode.py``);
 3. the fused hash + ShallowMLP kernel decodes the stream (B7,
-   ``ops/kernels/fused_render.py``) and the rows are put back in order;
+   ``ops/kernels/fused_render.py``) or, with ``fuse_decoder=False``, the
+   hash lookup (B3, ``ops/kernels/hash_encode.py``) and each tile's
+   decoder in PyTorch; the rows are put back in order;
 4. seam-weighted fg blend, front-to-back compositing, and the blend of
    the per-exit-tile background composites.
 
 Options of the JAX renderer that need what this port does not have yet
 raise ``NotImplementedError`` naming the ROADMAP item: ``backend="xla"``
-(the staged oracle), ``fuse_decoder=False`` (kernel B3),
-``early_term=True`` and ``sharded=True``.
+(the staged oracle), ``early_term=True`` and ``sharded=True``.
 """
 
 from __future__ import annotations
@@ -412,19 +413,45 @@ def _bg_mask(scene, tile_k, rays_o, rays_d, z_bg, bg_valid, invalid_underground)
 # windowed sorted-stream evaluation
 # ---------------------------------------------------------------------------
 
-def _eval_rows(scene: MultiTileScene, X, TID, DIR, dead, hook=None):
+def _decode_stream(scene: MultiTileScene, stream, chunk_tile, NW: int, fuse: bool):
+    """The decoder over the sorted stream -> [Np, 4] (sigma, diffuse +
+    tint*specular). Fused: B7. Unfused: B3, then each tile's decoder
+    (weight feature 1) on its chunks, which the stream holds in one
+    contiguous range (it is sorted by window, windows are tile-major, and
+    the sentinel and pad chunks at its end take the last tile), so one
+    batched product a tile gives the JAX package's vmap over chunks."""
+    res0 = scene.resolutions[0].contiguous()
+    if fuse:
+        return fr.hash_decode_fused(stream, chunk_tile, scene.features_flat, res0,
+                                    scene.decoders, NW, slabs=scene.dec_slabs)
+    feats = hw.hash_lookup_sorted(stream.pts, stream.meta, scene.features_flat, res0)
+    dirs = stream.pts[:, 4:7, :].permute(0, 2, 1).reshape(-1, 3)
+    if not bool((chunk_tile[1:] >= chunk_tile[:-1]).all()):
+        raise RuntimeError("the stream's chunks are not in tile order: each tile's decoder "
+                           "needs its chunks in one contiguous range")
+    counts = torch.bincount(chunk_tile, minlength=scene.n_tiles).tolist()
+    parts, c0 = [], 0
+    for t, n in enumerate(counts):
+        rows = slice(c0 * hw.CHUNK, (c0 + n) * hw.CHUNK)
+        dec = {name: {k: v[t] for k, v in p.items()} for name, p in scene.decoders.items()}
+        out = decoder_lib.apply_decoder(dec, feats[rows], dirs[rows])
+        parts.append(torch.cat([out["sigma"], out["diffuse"] + out["tint"] * out["specular"]],
+                               dim=-1))
+        c0 += n
+    return torch.cat(parts)
+
+
+def _eval_rows(scene: MultiTileScene, X, TID, DIR, dead, fuse_decoder=True, hook=None):
     """Sorted-stream evaluation of (point, tile) rows: sort + pack (B2),
-    fused hash + decoder (B7), unsort -> [R, 4] (sigma, diffuse +
-    tint*specular) in input row order."""
+    the stream's decode (``_decode_stream``), unsort -> [R, 4] (sigma,
+    diffuse + tint*specular) in input row order."""
     T, H = scene.n_tiles, scene.table_size
     stream = hw.sort_pack_tables(X, DIR, TID, H, T, dead=dead)
     _mark(hook, "sort_pack")
     NW = (H // hw.W) * T
     chunk_tile = torch.div(stream.meta[:, 0, 0] * hw.WB, H // hw.W,
                            rounding_mode="floor").clamp(0, T - 1).to(torch.int32)
-    cols = fr.hash_decode_fused(stream, chunk_tile.contiguous(), scene.features_flat,
-                                scene.resolutions[0].contiguous(), scene.decoders, NW,
-                                slabs=scene.dec_slabs)
+    cols = _decode_stream(scene, stream, chunk_tile.contiguous(), NW, fuse_decoder)
     _mark(hook, "decode")
     rows = hw.unsort_rows(cols, stream.pidp, X.shape[0])
     _mark(hook, "unsort")
@@ -438,7 +465,7 @@ def _mark(hook, name: str) -> None:
 
 def _render_windowed(scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles,
                      bg_w, z_bg, d_bg, bg_valid, invalid_underground,
-                     max_blend_tiles=MAX_PTS_BLOCKS, hook=None):
+                     max_blend_tiles=MAX_PTS_BLOCKS, fuse_decoder=True, hook=None):
     """Capped-slot evaluation: one sorted stream of all fg and bg slots."""
     N, S = z_vals.shape
     Sb = z_bg.shape[1]
@@ -471,7 +498,7 @@ def _render_windowed(scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles,
         (~(bg_used & bg_valid[:, None, None])).expand(N, Sb, Kb).permute(2, 0, 1).reshape(-1),
     ])
     _mark(hook, "slots")
-    rows = _eval_rows(scene, X, TID, DIR, DEAD, hook)
+    rows = _eval_rows(scene, X, TID, DIR, DEAD, fuse_decoder, hook)
 
     rf = rows[:n_fg].reshape(Kf, N, S, 4).movedim(0, 2)
     alpha_f = 1.0 - torch.exp(-rf[..., 0] * (dists * dnorm)[..., None])
@@ -500,7 +527,7 @@ def _render_windowed(scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles,
 # entry points
 # ---------------------------------------------------------------------------
 
-def _check_options(scene, backend, fuse_decoder):
+def _check_options(scene, backend):
     if backend not in ("auto", "windowed", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "xla" or (backend == "auto" and scene.hash_layout != "windowed"):
@@ -510,10 +537,6 @@ def _check_options(scene, backend, fuse_decoder):
     if scene.hash_layout != "windowed" or not scene.shared_res:
         raise ValueError("the windowed renderer needs windowed-layout tiles "
                          "with a shared resolution ladder")
-    if not fuse_decoder:
-        raise NotImplementedError(
-            "fuse_decoder=False needs the unfused hash kernel B3: ROADMAP.md "
-            "queue B, item 3")
 
 
 def render_rays(scene: MultiTileScene, rays_o, rays_d, num_sample: int = 128,
@@ -522,13 +545,15 @@ def render_rays(scene: MultiTileScene, rays_o, rays_d, num_sample: int = 128,
                 max_blend_tiles: int = MAX_PTS_BLOCKS, fuse_decoder: bool = True,
                 device="cuda", stage_hook=None) -> dict:
     """Render rays [N, 3] (origin, unnormalized direction) on ``device``,
-    which must be the scene's. ``stage_hook(name)``, when given, is called
+    which must be the scene's. ``fuse_decoder=False`` decodes with the
+    hash lookup (B3) and the decoder in PyTorch instead of the fused
+    kernel (B7). ``stage_hook(name)``, when given, is called
     after each stage (sample, slots, sort_pack, decode, unsort, blend), for
     timing. Returns rgb [N,3], depth [N,1], rgb_fg, T_left, fore_valid."""
     dev = _device.resolve(device)
     if scene.device.type != dev.type:
         raise ValueError(f"scene lives on {scene.device}, render asked for {dev}")
-    _check_options(scene, backend, fuse_decoder)
+    _check_options(scene, backend)
     rays_o = torch.as_tensor(rays_o, dtype=torch.float32, device=scene.device)
     rays_d = torch.as_tensor(rays_d, dtype=torch.float32, device=scene.device)
     z_vals, dists, valid = _sample_union(scene, rays_o, rays_d, num_sample, num_march)
@@ -538,7 +563,7 @@ def render_rays(scene: MultiTileScene, rays_o, rays_d, num_sample: int = 128,
     _mark(stage_hook, "sample")
     rgb_fg, depth_fg, T_left, rgb_bg, depth_bg, valid = _render_windowed(
         scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles, bg_w, z_bg, d_bg,
-        bg_valid, invalid_underground, max_blend_tiles, stage_hook)
+        bg_valid, invalid_underground, max_blend_tiles, fuse_decoder, stage_hook)
     rgb = rgb_fg + T_left[:, None] * rgb_bg
     depth = depth_fg + T_left * depth_bg
     out = {"rgb": rgb.clamp(0.0, 1.0), "depth": depth[:, None], "rgb_fg": rgb_fg,

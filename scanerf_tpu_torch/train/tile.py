@@ -21,14 +21,16 @@ renders fg + bg with ``models/field.py::render_rays`` and applies the loss
 registry with its warm-up and decay schedules. The update is in place: the
 state's tensors are overwritten, as the JAX step donates its state.
 
-Entry points (``create_train_state``, ``train_step``) take ``device`` and
-default to ``"cuda"``; without CUDA they raise.
+Entry points (``create_train_state``, ``train_step`` and the evaluation
+renders ``render_chunk``, ``render_depth_batch``, ``render_image``) take
+``device`` and default to ``"cuda"``; without CUDA they raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from scanerf_tpu_torch import _device
@@ -212,13 +214,20 @@ def _gate(step, start, end=10**9):
     return ((step > start) & (step < end)).to(torch.float32)
 
 
+def _check_device(t: torch.Tensor, device) -> torch.device:
+    dev = _device.resolve(device)
+    if t.device.type != dev.type:
+        raise ValueError(f"state lives on {t.device}, asked for {dev}")
+    return dev
+
+
 def _check_config(tc: TrainConfig):
     if tc.bg_mode != "IZ":
         raise NotImplementedError("BG_MODE 'BS' (mesh-guided background) is not "
                                   "ported yet: ROADMAP.md queue A, item 'BS background mode'")
     if tc.ray_shards > 1:
         raise NotImplementedError("ray sharding is not ported yet: ROADMAP.md queue A, "
-                                  "item 'Multi-device'")
+                                  "item 'Multi-device and opt-in knobs'")
 
 
 def _render(params, field_state, rays_o, rays_d, n_fg, n_bg, stepf, tc, **kw):
@@ -399,13 +408,79 @@ def train_step(state: TrainState, data: TileData, tc: TrainConfig,
     """One optimizer step, in place -> (state, aux). The batch is drawn
     from ``generator`` (a CPU generator) unless ``ray_idx`` and
     ``pixel_locs`` are given."""
-    dev = _device.resolve(device)
-    if state.params.field.features.device.type != dev.type:
-        raise ValueError(f"state lives on {state.params.field.features.device}, "
-                         f"asked for {dev}")
+    _check_device(state.params.field.features, device)
     (loss, aux), grads = compute_grads(state, data, tc, generator, ray_idx, pixel_locs,
                                        stage_hook)
     apply_gradients(state, grads, tc)
     state.step += 1
     _mark(stage_hook, "optimizer")
     return state, aux
+
+
+# ---------------------------------------------------------------------------
+# evaluation renders
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def render_chunk(params: TileParams, field_state: FieldState, rays_o, rays_d, step,
+                 tc: TrainConfig, device="cuda") -> dict:
+    """Evaluation render of one chunk of rays (no gradient, no training
+    outputs) with the tile's field at ``step``, in the configuration of
+    ``tc`` (fused or unfused decoder)."""
+    _check_device(params.field.features, device)
+    stepf = torch.as_tensor(step, dtype=torch.float32, device=rays_o.device)
+    return _render(params.field, field_state, rays_o, rays_d, tc.num_sample,
+                   tc.num_bg_sample, stepf, tc, train=False, num_march=tc.num_march)
+
+
+def _render_rays_chunked(state: TrainState, rays_o, rays_d, tc, chunk, keys, device):
+    """``render_chunk`` over rays in chunks (the last one padded with rays
+    of direction 1) -> {key: numpy [n, ...]}."""
+    n = rays_o.shape[0]
+    pad = (-n) % chunk
+    rays_o = torch.nn.functional.pad(rays_o, (0, 0, 0, pad))
+    rays_d = torch.nn.functional.pad(rays_d, (0, 0, 0, pad), value=1.0)
+    outs = {k: [] for k in keys}
+    for i in range(0, n + pad, chunk):
+        out = render_chunk(state.params, state.field_state, rays_o[i:i + chunk],
+                           rays_d[i:i + chunk], state.step, tc, device=device)
+        for k in keys:
+            outs[k].append(out[k])
+    return {k: torch.cat(v)[:n].cpu().numpy() for k, v in outs.items()}
+
+
+def render_depth_batch(state: TrainState, cams: Cameras, view_idxs: list[int], H: int,
+                       W: int, tc: TrainConfig, chunk: int = 2**14, k_scale=1.0,
+                       device="cuda") -> np.ndarray:
+    """Depth maps [V, H, W] f32 of several views rendered as one chunked
+    ray stream. ``k_scale`` (scalar or (sx, sy)) scales the intrinsics'
+    rows so that a downscaled H x W render covers the native camera's
+    field of view."""
+    from scanerf_tpu_torch.utils import rays as rays_mod
+
+    dev = _check_device(state.params.field.features, device)
+    sx, sy = (k_scale, k_scale) if np.isscalar(k_scale) else k_scale
+    xy = rays_mod.pixel_grid(H, W, device=dev)
+    rts = cam_lib.get_rts(cams, state.params.se3_refine)
+    scale = torch.tensor([[sx] * 3, [sy] * 3, [1.0] * 3], dtype=torch.float32, device=dev)
+    rays = [rays_mod.get_center_and_ray(xy, rts[v], cams.ks[v] * scale) for v in view_idxs]
+    depth = _render_rays_chunked(state, torch.cat([o for o, _ in rays]),
+                                 torch.cat([d for _, d in rays]), tc, chunk,
+                                 ("pred_depth",), dev)["pred_depth"]
+    return depth.reshape(len(view_idxs), H, W)
+
+
+def render_image(state: TrainState, cams: Cameras, view_idx: int, H: int, W: int,
+                 tc: TrainConfig, chunk: int = 2**14, device="cuda") -> dict:
+    """Full-image evaluation render in chunks -> {"rgb", "depth",
+    "diffuse", "specular"}: numpy [H, W, C]."""
+    from scanerf_tpu_torch.utils import rays as rays_mod
+
+    dev = _check_device(state.params.field.features, device)
+    xy = rays_mod.pixel_grid(H, W, device=dev)
+    pose = cam_lib.get_rts(cams, state.params.se3_refine)[view_idx]
+    rays_o, rays_d = rays_mod.get_center_and_ray(xy, pose, cams.ks[view_idx])
+    keys = {"rgb": "pred_color", "depth": "pred_depth", "diffuse": "pred_diffuse",
+            "specular": "pred_specular"}
+    out = _render_rays_chunked(state, rays_o, rays_d, tc, chunk, tuple(keys.values()), dev)
+    return {k: out[v].reshape(H, W, -1) for k, v in keys.items()}

@@ -87,7 +87,7 @@ def test_port_imports_no_jax():
 
 def test_entry_points_need_cuda(tmp_path):
     """(a) without CUDA the entry points raise when no device is given;
-    options this slice does not port raise NotImplementedError."""
+    options the port does not have yet raise NotImplementedError."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is valid")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -104,9 +104,8 @@ def test_entry_points_need_cuda(tmp_path):
         tr.render_image(scene, np.eye(3), np.eye(3, 4), 2, 2)
     with pytest.raises(RuntimeError, match="cuda"):
         convert.decoder_params(np.zeros(tdec.PARAMSIZE, np.float32))
-    for kw in (dict(backend="xla"), dict(fuse_decoder=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.render_rays(scene, z, z, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.render_rays(scene, z, z, device="cpu", backend="xla")
     for kw in (dict(sharded=True), dict(early_term=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tr.render_image(scene, np.eye(3), np.eye(3, 4), 2, 2, device="cpu", **kw)

@@ -584,9 +584,9 @@ def test_optimizer_update_matches_optax(cam_start):
 # ---------------------------------------------------------------------------
 
 def test_train_entry_points_need_cuda_and_unported_options_raise():
-    """Without CUDA the training entry points raise unless asked for the
-    CPU; options this slice does not port raise NotImplementedError
-    naming their ROADMAP item."""
+    """Without CUDA the training entry points (the evaluation renders
+    too) raise unless asked for the CPU; options the port does not have
+    yet raise NotImplementedError naming their ROADMAP item."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is valid")
     gen = torch.Generator().manual_seed(0)
@@ -600,11 +600,18 @@ def test_train_entry_points_need_cuda_and_unported_options_raise():
     state = ttile.create_train_state(params, fs, 2, tc, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         ttile.train_step(state, None, tc)
+    cams = tcam.make_cameras(torch.eye(3).expand(2, 3, 3), torch.eye(3, 4).expand(2, 3, 4))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ttile.render_chunk(state.params, fs, torch.zeros(4, 3), torch.ones(4, 3), 0, tc)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ttile.render_image(state, cams, 0, 2, 2, tc)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ttile.render_depth_batch(state, cams, [0], 2, 2, tc)
     with pytest.raises(RuntimeError, match="cuda"):
         convert.train_state(_tiny_jax_state(jtile.TrainConfig(), n_cam=2))
     o = torch.zeros(4, 3)
     d = torch.ones(4, 3)
-    for kw in (dict(backend="xla"), dict(fused_decoder=False), dict(table_shards=2),
+    for kw in (dict(backend="xla"), dict(table_shards=2),
                dict(stochastic_grad=True), dict(bwd_onehot_bf16=True),
                dict(bg_z=(o, o, o))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
