@@ -38,7 +38,13 @@ gradients), B5, B6, B3 and B4 against their plain versions on the middle
 256 chunks of a step's own stream (B4 with the unfused decoder's feature
 cotangent, under the step's BARF weights and with every level on), times
 them on the whole stream, and holds one full-recipe step of 512 rays on
-the card against the same step on the CPU (losses and gradients).
+the card against the same step on the CPU (losses and gradients). B6 is
+two launches, B6a (the decoder backward, its large products on the
+tensor cores) and B4's kernel (the table scatter, summed per chunk in
+shared memory); the script also holds and times B6a alone, prints how
+many windows each live chunk of the stream spans, the f32 elements the
+step's B6 and B4 add to the table gradient with global atomics, and, where
+the toolkit has cuobjdump, the tensor-core (HMMA) instructions of B6a.
 
 It prints the card's name and power limit (nvidia-smi), each phase's
 seconds, and, before the last line, one JSON line ``{"kernels": [...]}``
@@ -71,6 +77,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 T_TILES, LEVELS, TABLE = 4, 16, 2**21
 GRID = 64
@@ -209,6 +216,7 @@ WARM_STEPS, TIMED_STEPS = 2, 5
 N_SUB_CHUNKS = 256  # B5/B6 against their plain versions on this many middle chunks
 N_CHECK_RAYS = 512  # the card's step against the CPU's
 MACS = 32 * 64 + 64 * 64 + 7 * 32 + 48 * 64 + 64 * 64 + 3 * 64  # decoder per row
+TC_MACS = 32 * 64 + 64 * 64 + 48 * 64 + 64 * 64  # of them, B6a's on the tensor cores
 # fused against unfused, one full-recipe step from the same state and rays
 # at the 512-ray check's loss weights (below): the same samples, only the
 # decode's sums (B5/B6 per row against B3/B4 and torch.matmul) and the
@@ -505,10 +513,18 @@ def lookup_kernels(state, pts, meta, table, res, NW, g, sub_range, launches, ren
               bytes=(u_wid_bytes + pts.numel() * 4 + meta.numel() * 4 + gf.numel() * 4
                      + tab_bytes + table.numel() * 4),
               ops=real_rows * LEVELS * 8 * 14, library_ms=None)
+    counts = {}
+    for label, wf in (("step weights", wf_step), ("all levels", wf_all)):
+        adds = torch.zeros(1, dtype=torch.int64, device="cuda")
+        hw.lookup_bwd(pts, meta, table, res, gf if label == "step weights"
+                      else d_feats(feats, slice(None), wf), NW, adds=adds)
+        counts[label] = int(adds)
     print(f"B3 {b3['ms']:.3f} ms (plain {b3['plain_ms']:.1f}), B4 {b4['ms']:.3f} ms (plain "
           f"{b4['plain_ms']:.1f}) on the whole stream: {NC} chunks, {live} live, {real_rows} "
-          f"real rows, {visited} visited blocks; B4 issues {real_rows * LEVELS * 8 * 2} f32 "
-          f"atomics")
+          f"real rows, {visited} visited blocks")
+    print(f"global atomics into the table gradient, one step's B4: {counts['step weights']} f32 "
+          f"elements with the step's BARF weights, {counts['all levels']} with every level on "
+          f"(a per-corner scatter: {real_rows * LEVELS * 8 * 2})")
     return b3, b4
 
 
@@ -562,6 +578,14 @@ def train_phase(render_b3: dict) -> list[dict]:
     live_c = meta[:, :, 2].sum(dim=1) > 0
     live, visited = int(live_c.sum()), int(torch.unique(meta[live_c, 0, 0]).numel())
     print(f"training stream: {NC} chunks, {live} live, {visited} visited blocks")
+    # the windows each live chunk spans: B4's kernel sums a chunk's table
+    # gradient in a shared slab over them, 8 windows a pass
+    span = meta[:, :, 2]
+    wlo = torch.where(span > 0, meta[:, :, 1], torch.full_like(span, 2**30)).amin(dim=1)
+    whi = torch.where(span > 0, meta[:, :, 1] + span - 1, torch.full_like(span, -1)).amax(dim=1)
+    n_win, count = torch.unique((whi - wlo + 1)[live_c], return_counts=True)
+    print("windows spanned per live chunk (windows: chunks): "
+          + json.dumps({int(k): int(v) for k, v in zip(n_win, count)}))
     # the kernels against their plain versions on the middle chunks, with
     # the step's slab and with one packed where BARF weighs every level 1
     # (at this early step levels 9-15 weigh 0, so their feature cotangents,
@@ -591,8 +615,13 @@ def train_phase(render_b3: dict) -> list[dict]:
                  ("dpts dirs", dpts_k[:, 4:7], dpts_p[:, 4:7]),
                  ("d_slab", dslab_k, dslab_p)]
         parts += [(f"d_tables level {lv}", dtab_k[lv], dtab_p[lv]) for lv in range(LEVELS)]
+        # and B6a's own output, the features' cotangent, on the live chunks
+        live_rows = (sub[1][:, :, 2].sum(dim=1) > 0).repeat_interleave(hw.CHUNK)
+        df_k = ft.decoder_bwd(*sub, slab, feats_k, g_sub)[0].permute(0, 2, 1).reshape(-1, 32)
+        df_p = ft.decoder_bwd_plain(*sub, slab, feats_p, g_sub)[0]
+        parts.append(("d_feats (B6a)", df_k[live_rows], df_p[live_rows]))
         err_b6 += check_parts(f"B6 ({label})", parts, label == "all levels")
-        del dpts_k, dtab_k, dslab_k, dpts_p, dtab_p, dslab_p, cols_p, feats_p
+        del dpts_k, dtab_k, dslab_k, dpts_p, dtab_p, dslab_p, cols_p, feats_p, df_k, df_p
     torch.cuda.empty_cache()
 
     # times on the whole stream of the step
@@ -612,15 +641,36 @@ def train_phase(render_b3: dict) -> list[dict]:
               plain_ms=timed(lambda: ft.train_fwd_plain(pts, meta, table, res, pslab, NW), 1),
               bytes=b5_bytes, ops=live * hw.CHUNK * (2 * MACS + 16 * 8 * 6), library_ms=None)
     torch.cuda.empty_cache()
+    # B6's operations: the decoder's three products (forward, input and
+    # weight gradients: 6 x MACS a row), the scatter and dL/du (16 levels x
+    # 8 corners x 16). B6a runs the four large matrices (TC_MACS of MACS a
+    # row) as three TF32 products each on the tensor cores and the rest on
+    # the CUDA cores; the two units run side by side, so the bound is the
+    # larger of their times. Beside it, the same work all in f32 on the CUDA
+    # cores (the bound before B6 used the tensor cores).
+    rows_live = live * hw.CHUNK
+    tc_ms = rows_live * 3 * 6 * TC_MACS / TF32_OPS_PER_S * 1e3
+    cc_ms = rows_live * (6 * (MACS - TC_MACS) + 16 * 8 * 16) / F32_OPS_PER_S * 1e3
+    f32_ms = rows_live * (6 * MACS + 16 * 8 * 16) / F32_OPS_PER_S * 1e3
+    adds = torch.zeros(1, dtype=torch.int64, device="cuda")
+    ft.train_bwd(pts, meta, table, res, pslab, feats_full, g, NW, adds=adds)
+    b6_adds = int(adds)
     b6 = dict(name="fused_train_bwd", route="cuda", source="scanerf_tpu_torch/csrc/fused_train.cu",
               replaces="scanerf_tpu/ops/pallas/fused_train.py:222", launches=launches["B6"],
               max_abs_err=max(err_b6),
               ms=timed(lambda: ft.train_bwd(pts, meta, table, res, pslab, feats_full, g, NW), 3),
               plain_ms=timed(lambda: ft.train_bwd_plain(pts, meta, table, res, pslab, feats_full,
                                                         g, NW), 1),
-              bytes=b6_bytes, ops=live * hw.CHUNK * (6 * MACS + 16 * 8 * 16), library_ms=None)
+              bytes=b6_bytes, ops_ms=max(tc_ms, cc_ms), library_ms=None)
+    b6a_ms = timed(lambda: ft.decoder_bwd(pts, meta, pslab, feats_full, g), 3)
+    real_rows = int((pts[:, 3, :] < NW).sum())
     print(f"B5 {b5['ms']:.3f} ms (plain {b5['plain_ms']:.1f}), B6 {b6['ms']:.3f} ms "
-          f"(plain {b6['plain_ms']:.1f}) on the whole stream")
+          f"(plain {b6['plain_ms']:.1f}; of it B6a {b6a_ms:.3f} ms, then B4's kernel) on the "
+          f"whole stream; B6's operation bound {max(tc_ms, cc_ms):.3f} ms with the tensor cores "
+          f"(3xTF32 {tc_ms:.3f}, CUDA cores {cc_ms:.3f}), {f32_ms:.3f} ms all in f32 on the CUDA "
+          f"cores")
+    print(f"global atomics into the table gradient, one step's B6: {b6_adds} f32 elements "
+          f"(a per-corner scatter: {real_rows * LEVELS * 8 * 2})")
     del feats_full
     torch.cuda.empty_cache()
     b3, b4 = lookup_kernels(state, pts, meta, table, res, NW, g, (c0, c1), launches, render_b3)
@@ -705,6 +755,49 @@ def train_phase(render_b3: dict) -> list[dict]:
     return [b3, b4, b5, b6]
 
 
+def print_ptxas(lib: str, log: str) -> None:
+    """One line per kernel of a library's ``-Xptxas -v`` log: registers,
+    spills and shared memory."""
+    import re
+
+    kernel, spill = None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            names = re.findall(r"[a-z]+(?:_[a-z]+)*_kernel", line)
+            kernel = (names[0] if names else "?") + ("<bf16>" if "bfloat16" in line else "")
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and kernel:
+            print(f"  ptxas {lib} {kernel}: {line.split(':', 1)[1].strip()}; {spill}")
+            kernel = None
+
+
+def sass_report(build) -> None:
+    """Where the toolkit has cuobjdump: the tensor-core (HMMA) and atomic
+    instructions of B6a's and B4's kernels, from the built libraries."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("sass: cuobjdump not found, tensor-core instructions not checked")
+        return
+    for lib, kernel in (("fused_train", "decoder_bwd_kernel"), ("hash_encode", "lookup_bwd_kernel")):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(lib))], capture_output=True,
+                              text=True, check=True).stdout
+        ops: dict[str, int] = {}
+        for func in sass.split("Function : ")[1:]:
+            if kernel not in func.splitlines()[0]:
+                continue
+            for line in func.splitlines():
+                words = line.split("*/")[1].split() if line.count("*/") >= 2 else []
+                words = [w for w in words if not w.startswith("@")]
+                if words and words[0].split(".")[0] in ("HMMA", "ATOMS", "ATOM", "ATOMG", "RED",
+                                                        "REDG"):
+                    op = words[0].rstrip(";")
+                    ops[op] = ops.get(op, 0) + 1
+        print(f"sass {kernel}: {ops or 'no HMMA or atomic instructions'}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -737,9 +830,8 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(built)} "
           + " ".join(f"{k}={v[0]:.1f}s" for k, v in built.items()))
     for name, (_, log) in built.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        print_ptxas(name, log)
+    sass_report(_build)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -984,7 +1076,7 @@ def main() -> None:
 
     for r in rows:
         t_bytes = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
-        t_ops = r.pop("ops") / F32_OPS_PER_S * 1e3
+        t_ops = r.pop("ops_ms") if "ops_ms" in r else r.pop("ops") / F32_OPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     print(json.dumps({"kernels": rows}))

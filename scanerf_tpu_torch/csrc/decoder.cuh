@@ -1,8 +1,8 @@
 // Device code shared by the hash and decode kernels (hash_encode.cu: B3 and
 // B4, fused_render.cu: B7, fused_train.cu: B5 and B6): the windowed hash
-// gather read straight from the flat [L, T*H*2] tables and its pullback (the
-// table scatter and dL/du), and the ShallowMLP forward with its weights in a
-// decoder slab.
+// gather read straight from the flat [L, T*H*2] tables, its corner
+// addressing (which B4's table scatter also uses), and the ShallowMLP
+// forward with its weights in a decoder slab.
 //
 // Windowed hash: a stream row in window w reads, per level l, the 8 corner
 // slots of the folded prime-XOR hash inside w's 512 entries and sums their
@@ -10,6 +10,10 @@
 // heads (sigma, diffuse x3, tint x3) on channels 0-31; the SH-16 of the
 // normalized view dir d / (|d| + 1e-8) joins channels 32-63 for
 // 48 -> 64 (Gauss) -> 64 (Gauss) -> 3 (specular, before its sigmoid).
+// What bounds each kernel on the H100, and what its design does about it,
+// is in the kernel's own source: the gathers read 8-byte pairs inside one
+// 2 MB block of windows a chunk, which L2 holds; B5 and B7 run the decoder
+// on the CUDA cores, B6 its large products on the tensor cores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -109,12 +113,17 @@ __device__ __forceinline__ Corners corner_setup(const int* res, int l, float ux,
   return k;
 }
 
-__device__ __forceinline__ size_t corner_entry(const Corners& k, int w, int c) {
+// Corner c's slot in its window, in [0, WIN).
+__device__ __forceinline__ int corner_slot(const Corners& k, int c) {
   const bool cx = (c >> 2) & 1, cy = (c >> 1) & 1, cz = c & 1;
   uint32_t h = (cx ? k.hx0 + 1u : k.hx0) ^ (cy ? k.hy0 + 2654435761u : k.hy0) ^
                (cz ? k.hz0 + 805459861u : k.hz0);
   h = h ^ (h >> 9) ^ (h >> 18);
-  return (size_t)w * WIN + (h & (WIN - 1));
+  return (int)(h & (WIN - 1));
+}
+
+__device__ __forceinline__ size_t corner_entry(const Corners& k, int w, int c) {
+  return (size_t)w * WIN + corner_slot(k, c);
 }
 
 __device__ __forceinline__ float corner_weight(const Corners& k, int c) {
@@ -154,37 +163,6 @@ __device__ void encode(const TT* __restrict__ table, long long row_stride,
     f[2 * l] = a.x;
     f[2 * l + 1] = a.y;
   }
-}
-
-// Pullback of one row's feature pair at level l under its cotangent (g0, g1):
-// adds weight * (g0, g1) at the level's 8 corner entries of the dense table
-// gradient dl (atomicAdd; entries no row touches keep their zero), and sets
-// (du0, du1, du2) to this level's dL/du from the regathered corners of tl.
-__device__ __forceinline__ void scatter_level(const float* __restrict__ tl,
-                                              float* __restrict__ dl, const int* res,
-                                              int l, int w, float ux, float uy, float uz,
-                                              float g0, float g1, float& du0, float& du1,
-                                              float& du2) {
-  const Corners k = corner_setup(res, l, ux, uy, uz);
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-  for (int cn = 0; cn < 8; ++cn) {
-    const bool cx = (cn >> 2) & 1, cy = (cn >> 1) & 1, cz = cn & 1;
-    const size_t ent = corner_entry(k, w, cn);
-    const float fx = cx ? k.ox : 1.0f - k.ox, fy = cy ? k.oy : 1.0f - k.oy,
-                fz = cz ? k.oz : 1.0f - k.oz;
-    const float wt = fx * fy * fz;
-    atomicAdd(dl + 2 * ent, wt * g0);
-    atomicAdd(dl + 2 * ent + 1, wt * g1);
-    const float2 v = load_pair(tl, ent);
-    const float dot = g0 * v.x + g1 * v.y;
-    s0 += (cx ? 1.0f : -1.0f) * fy * fz * dot;
-    s1 += (cy ? 1.0f : -1.0f) * fx * fz * dot;
-    s2 += (cz ? 1.0f : -1.0f) * fx * fy * dot;
-  }
-  du0 = s0 * ((float)res[3 * l] - 1.0f);
-  du1 = s1 * ((float)res[3 * l + 1] - 1.0f);
-  du2 = s2 * ((float)res[3 * l + 2] - 1.0f);
 }
 
 // Degree-3 SH of the unit direction (x, y, z) into sh[0..15].

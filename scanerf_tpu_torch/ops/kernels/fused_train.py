@@ -13,14 +13,18 @@ _ft_fwd_kernel`` (B5, launched at fused_train.py:348) and ``_ft_bwd_kernel``
   residual (skipped when no gradient is wanted, as in the warp loss's
   visibility re-render). One block per 1024-row chunk, the slab in shared
   memory; the decoder's f32 multiply-adds bound it.
-- B6, per live chunk in tiles of 32 rows: the decoder forward recomputed
-  from the features, its hand-derived pullback, the table scatter with
-  atomicAdd into a zeroed dense [L, H*2] gradient (entries no row touches
-  stay zero, as the JAX kernel zeroes unvisited blocks), dL/du through the
-  trilinear weights (dpts rows 0-2), dL/d dirs (rows 4-6), and the slab
-  gradient summed per block in registers and added once per block. Its
-  f32 multiply-adds (forward, input and weight gradients: ~41 K a row)
-  bound it.
+- B6, two launches: B6a, per live chunk in tiles of 64 rows, recomputes
+  the decoder forward from the features and runs its hand-derived
+  pullback, the four large matrices on the tensor cores in 3xTF32 (about
+  f32's accuracy): the features' cotangent (kept in a scratch [NC, L*2,
+  CHUNK] buffer), dL/d dirs (dpts rows 4-6), and the slab gradient summed
+  per block in registers and added once per block. Then B4's kernel
+  (``hash_encode.scatter_bwd``) scatters the features' cotangent into a
+  zeroed dense [L, H*2] table gradient, summed per chunk and level in
+  shared memory (entries no row touches stay zero, as the JAX kernel zeroes
+  unvisited blocks), and writes dL/du (dpts rows 0-2).
+  ``decoder_bwd_plain`` then ``lookup_bwd_plain`` is the same composition
+  in plain PyTorch.
 
 The atomics add in an order that changes from run to run, so B6's table
 and slab gradients differ between runs in the last bits of f32.
@@ -44,7 +48,8 @@ from scanerf_tpu_torch.models.decoder import gaussian_act, softplus
 from scanerf_tpu_torch.ops.kernels.fused_render import (
     B_DIR0, B_DIR1, B_DIR2, B_HEAD, B_SP0, B_SP1, DIR0_W, DIR1_W, DIR2_W,
     HEAD_W, PSLAB, SP0_W, SP1_W)
-from scanerf_tpu_torch.ops.kernels.hash_encode import CHUNK, W, check_tensor, lookup_fwd_plain
+from scanerf_tpu_torch.ops.kernels.hash_encode import (
+    CHUNK, W, check_tensor, lookup_fwd_plain, scatter_bwd)
 from scanerf_tpu_torch.utils.sh import sh_encoding
 
 # (offset, [out, in] shape) of each weight matrix in the slab, then biases
@@ -127,6 +132,27 @@ def train_bwd_plain(pts, meta, features, resolutions, pslab, feats, g, NW: int):
         return torch.autograd.grad(cols, (p, f, s), g)
 
 
+def decoder_bwd_plain(pts, meta, pslab, feats, g):
+    """Plain PyTorch version of B6a, the decoder half of B6 -> (d_feats
+    [Np, L*2], dpts [NC, 8, CHUNK] with dL/d dirs in rows 4-6 and zeros
+    elsewhere, d_pslab [PSLAB]): the cotangents of the decoder's columns
+    under ``g`` [Np, 8] on live chunks, by autograd, from the forward's
+    residual ``feats`` [NC, L, 2, CHUNK]. ``lookup_bwd_plain`` on d_feats
+    gives the rest of ``train_bwd_plain``: the table gradient and rows 0-2."""
+    NC, L = feats.shape[0], feats.shape[1]
+    live = (meta[:, :, 2].sum(dim=1) > 0).repeat_interleave(CHUNK)
+    with torch.enable_grad():
+        f = feats.detach().permute(0, 3, 1, 2).reshape(NC * CHUNK, 2 * L).requires_grad_()
+        d = pts[:, 4:7, :].detach().permute(0, 2, 1).reshape(-1, 3).requires_grad_()
+        s = pslab.detach().requires_grad_()
+        cols = decode_train_rows(s, f, d)
+        cols = torch.where(live[:, None], cols, torch.zeros_like(cols))
+        d_feats, d_dirs, d_pslab = torch.autograd.grad(cols, (f, d, s), g)
+    dpts = torch.zeros_like(pts)
+    dpts[:, 4:7, :] = d_dirs.reshape(NC, CHUNK, 3).permute(0, 2, 1)
+    return d_feats, dpts, d_pslab
+
+
 def _check_stream(pts, meta, features, resolutions, pslab, NW):
     dev = pts.device
     NC, L = pts.shape[0], resolutions.shape[0]
@@ -176,28 +202,41 @@ def train_fwd(pts, meta, features, resolutions, pslab, NW: int, want_feats: bool
 train_fwd.launches = 0
 
 
-def train_bwd(pts, meta, features, resolutions, pslab, feats, g, NW: int):
+def decoder_bwd(pts, meta, pslab, feats, g):
+    """Launch B6a, the decoder half of B6, on CUDA tensors -> (d_feats
+    [NC, L*2, CHUNK] (live chunks only: dead chunks' are not written),
+    dpts [NC, 8, CHUNK] with rows 3-7 written, d_pslab [PSLAB]). Counts no
+    launch: ``train_bwd`` does."""
+    NC, L = pts.shape[0], feats.shape[1]
+    check_tensor("pts", pts, torch.float32, (NC, 8, CHUNK), pts.device)
+    check_tensor("meta", meta, torch.int32, (NC, CHUNK // 128, 4), pts.device)
+    check_tensor("pslab", pslab, torch.float32, (PSLAB,), pts.device)
+    check_tensor("feats", feats, torch.float32, (NC, L, 2, CHUNK), pts.device)
+    check_tensor("g", g, torch.float32, (NC * CHUNK, 8), pts.device)
+    dpts = torch.empty_like(pts)
+    d_feats = torch.empty((NC, 2 * L, CHUNK), dtype=torch.float32, device=pts.device)
+    d_pslab = torch.zeros_like(pslab)
+    f = _fn("scanerf_train_bwd", [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P])
+    P = _build.ptr
+    err = f(P(pts), P(meta), P(pslab), P(feats), P(g), L, NC, P(d_feats), P(dpts),
+            P(d_pslab), _build.stream_ptr(pts))
+    _build.check(err, "scanerf_train_bwd")
+    return d_feats, dpts, d_pslab
+
+
+def train_bwd(pts, meta, features, resolutions, pslab, feats, g, NW: int, adds=None):
     """B6 wrapper -> (dpts [NC, 8, CHUNK], d_features [L, H*2], d_pslab
     [PSLAB]). CPU tensors take ``train_bwd_plain``; CUDA tensors launch
-    the kernel."""
+    B6a (``decoder_bwd``), then B4's kernel for the table gradient and
+    dL/du (``hash_encode.scatter_bwd``; ``adds``: see there)."""
     if pts.device.type == "cpu":
         return train_bwd_plain(pts, meta, features, resolutions, pslab, feats, g, NW)
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
     _check_stream(pts, meta, features, resolutions, pslab, NW)
-    NC, L = pts.shape[0], resolutions.shape[0]
-    check_tensor("feats", feats, torch.float32, (NC, L, 2, CHUNK), pts.device)
-    check_tensor("g", g, torch.float32, (NC * CHUNK, 8), pts.device)
-    dpts = torch.empty_like(pts)
-    d_features = torch.zeros_like(features)
-    d_pslab = torch.zeros_like(pslab)
-    f = _fn("scanerf_train_bwd",
-            [_P, _P, _P, _LL, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P])
-    P = _build.ptr
-    err = f(P(pts), P(meta), P(features), features.shape[1], L, P(resolutions), P(pslab),
-            P(feats), P(g), NW, NC, P(d_features), P(dpts), P(d_pslab),
-            _build.stream_ptr(pts))
-    _build.check(err, "scanerf_train_bwd")
+    d_feats, dpts, d_pslab = decoder_bwd(pts, meta, pslab, feats, g)
+    d_features = scatter_bwd(pts, meta, features, resolutions, d_feats, NW, dpts, 3, adds,
+                             g_layout="chunks")
     train_bwd.launches += 1
     return dpts, d_features, d_pslab
 

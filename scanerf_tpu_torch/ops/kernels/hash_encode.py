@@ -26,10 +26,12 @@ hash_encode.py:1231) and ``_bwd_kernel`` (``_run_bwd``, :1268), in
 ``csrc/hash_encode.cu``. ``hash_lookup_sorted`` is a
 ``torch.autograd.Function`` whose forward is B3 (the stream's features
 [Np, L*2] f32, zero on sentinel rows; f32 or bf16 tables) and whose
-backward is B4 (the table gradient by atomicAdd into a zeroed dense
-buffer, so unvisited blocks stay exactly zero, and the analytic dL/du in
-dpts rows 0-2; f32 tables only). Device memory bounds B3; B4's f32
-atomics are expected to set its time (see the source's note).
+backward is B4 (the table gradient summed per chunk and level in shared
+memory, then added to a zeroed dense buffer, so unvisited blocks stay
+exactly zero, and the analytic dL/du in dpts rows 0-2; f32 tables only).
+B6's wrapper launches B4's kernel too, through ``scatter_bwd``, for its
+table gradient. Device memory bounds B3 and, by its design, B4 (see the
+source's note).
 """
 
 from __future__ import annotations
@@ -456,26 +458,50 @@ def lookup_fwd(pts, meta, features, resolutions, NW: int) -> torch.Tensor:
 lookup_fwd.launches = 0
 
 
-def lookup_bwd(pts, meta, features, resolutions, g, NW: int):
+def scatter_bwd(pts, meta, features, resolutions, g, NW: int, dpts, own_rows: int,
+                adds=None, g_layout: str = "rows"):
+    """Launch B4's kernel, the table scatter and dL/du, on CUDA tensors ->
+    d_features [L, NW*512*2] f32; writes dL/du into dpts rows 0-2 and, with
+    ``own_rows`` 8, zeros into rows 3-7 (with 3 it leaves them to the
+    caller). ``g`` is the features' cotangent, [Np, L*2] (``g_layout``
+    "rows") or [NC, L*2, CHUNK] ("chunks"). With ``adds``, an int64 [1]
+    tensor, the kernel adds to it the f32 elements it added to the table
+    gradient with global atomics. Counts no launch: its callers do."""
+    _check_lookup(pts, meta, features, resolutions, NW)
+    NC, L = pts.shape[0], resolutions.shape[0]
+    if g_layout == "rows":
+        check_tensor("g", g, torch.float32, (NC * CHUNK, 2 * L), pts.device)
+        g_row, g_feat = 2 * L, 1
+    else:
+        check_tensor("g", g, torch.float32, (NC, 2 * L, CHUNK), pts.device)
+        g_row, g_feat = 1, CHUNK
+    check_tensor("dpts", dpts, torch.float32, tuple(pts.shape), pts.device)
+    if adds is not None:
+        check_tensor("adds", adds, torch.int64, (1,), pts.device)
+    d_features = torch.zeros_like(features)
+    f = _lookup_fn("scanerf_lookup_bwd", [_P, _P, _P, _LL, _I, _P, _P, _I, _I, _I, _I, _I,
+                                          _P, _P, _P, _P])
+    P = _build.ptr
+    err = f(P(pts), P(meta), P(features), features.shape[1], L, P(resolutions), P(g), g_row,
+            g_feat, NW, NC, own_rows, P(d_features), P(dpts),
+            P(adds) if adds is not None else None, _build.stream_ptr(pts))
+    _build.check(err, "scanerf_lookup_bwd")
+    return d_features
+
+
+def lookup_bwd(pts, meta, features, resolutions, g, NW: int, adds=None):
     """B4 wrapper -> (dpts [NC, 8, CHUNK], d_features [L, NW*512*2] f32).
-    CPU tensors take ``lookup_bwd_plain``; CUDA tensors launch the kernel.
-    Tables must be f32 (bf16 tables are for inference)."""
+    CPU tensors take ``lookup_bwd_plain``; CUDA tensors launch the kernel
+    (``adds``: see ``scatter_bwd``). Tables must be f32 (bf16 tables are
+    for inference)."""
     if features.dtype != torch.float32:
         raise ValueError(f"the lookup's backward needs f32 tables, got {features.dtype}")
     if pts.device.type == "cpu":
         return lookup_bwd_plain(pts, features, resolutions, g, NW)
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
-    _check_lookup(pts, meta, features, resolutions, NW)
-    NC, L = pts.shape[0], resolutions.shape[0]
-    check_tensor("g", g, torch.float32, (NC * CHUNK, 2 * L), pts.device)
     dpts = torch.empty_like(pts)
-    d_features = torch.zeros_like(features)
-    f = _lookup_fn("scanerf_lookup_bwd", [_P, _P, _P, _LL, _I, _P, _P, _I, _I, _P, _P, _P])
-    P = _build.ptr
-    err = f(P(pts), P(meta), P(features), features.shape[1], L, P(resolutions), P(g), NW,
-            NC, P(d_features), P(dpts), _build.stream_ptr(pts))
-    _build.check(err, "scanerf_lookup_bwd")
+    d_features = scatter_bwd(pts, meta, features, resolutions, g, NW, dpts, 8, adds)
     lookup_bwd.launches += 1
     return dpts, d_features
 
