@@ -43,8 +43,10 @@ two launches, B6a (the decoder backward, its large products on the
 tensor cores) and B4's kernel (the table scatter, summed per chunk in
 shared memory); the script also holds and times B6a alone, prints how
 many windows each live chunk of the stream spans, the f32 elements the
-step's B6 and B4 add to the table gradient with global atomics, and, where
-the toolkit has cuobjdump, the tensor-core (HMMA) instructions of B6a.
+step's B6 and B4 add to the table gradient with global atomics, the
+blocks an SM holds of B5, B6a and B7, and, where the toolkit has
+cuobjdump, the tensor-core (HMMA) instructions of B5, B6a and B7, whose
+large products run on the tensor cores in 3xTF32.
 
 It prints the card's name and power limit (nvidia-smi), each phase's
 seconds, and, before the last line, one JSON line ``{"kernels": [...]}``
@@ -216,7 +218,7 @@ WARM_STEPS, TIMED_STEPS = 2, 5
 N_SUB_CHUNKS = 256  # B5/B6 against their plain versions on this many middle chunks
 N_CHECK_RAYS = 512  # the card's step against the CPU's
 MACS = 32 * 64 + 64 * 64 + 7 * 32 + 48 * 64 + 64 * 64 + 3 * 64  # decoder per row
-TC_MACS = 32 * 64 + 64 * 64 + 48 * 64 + 64 * 64  # of them, B6a's on the tensor cores
+TC_MACS = 32 * 64 + 64 * 64 + 48 * 64 + 64 * 64  # of them, on the tensor cores (B5-B7)
 # fused against unfused, one full-recipe step from the same state and rays
 # at the 512-ray check's loss weights (below): the same samples, only the
 # decode's sums (B5/B6 per row against B3/B4 and torch.matmul) and the
@@ -229,6 +231,18 @@ TC_MACS = 32 * 64 + 64 * 64 + 48 * 64 + 64 * 64  # of them, B6a's on the tensor 
 # neighbour selection (ROADMAP.md queue C).
 FVU_LOSS_RTOL = {"*": 1e-5, "warp_loss": 1e-3}
 FVU_GRAD_RTOL = {"hash": 1e-4, "decoder": 1e-4, "cam": 1e-3}
+
+
+def decoder_bounds(rows: int, products: int, other_ops: int) -> tuple[float, float, float]:
+    """Least ms for ``rows`` live rows of ``products`` decoder products (1:
+    the forward; 3: forward, input and weight gradients) and ``other_ops``
+    CUDA-core operations a row: (the four large matrices as 3xTF32 on the
+    tensor cores, the rest on the CUDA cores, all of it in f32 on the CUDA
+    cores)."""
+    tc = rows * 3 * 2 * products * TC_MACS / TF32_OPS_PER_S * 1e3
+    cc = rows * (2 * products * (MACS - TC_MACS) + other_ops) / F32_OPS_PER_S * 1e3
+    f32 = rows * (2 * products * MACS + other_ops) / F32_OPS_PER_S * 1e3
+    return tc, cc, f32
 
 
 def to_device(obj, dev):
@@ -634,24 +648,26 @@ def train_phase(render_b3: dict) -> list[dict]:
                 + tab_bytes + pslab.numel() * 4)
     b6_bytes = (rows_in + meta.numel() * 4 + feats_full.numel() * 4 + rows_b5 * 8 * 4
                 + pts.numel() * 4 + tab_bytes + table.numel() * 4 + 2 * pslab.numel() * 4)
+    # B5's operations: the decoder forward (2 x MACS a row) and the
+    # trilinear sums (16 levels x 8 corners x 6); B6's: the decoder's three
+    # products (forward, input and weight gradients: 6 x MACS a row), the
+    # scatter and dL/du (16 levels x 8 corners x 16). Both run the four
+    # large matrices (TC_MACS of MACS a row) as three TF32 products each on
+    # the tensor cores and the rest on the CUDA cores; the two units run
+    # side by side, so the bound is the larger of their times. Beside it,
+    # the same work all in f32 on the CUDA cores (the bound before the
+    # kernel used the tensor cores).
+    rows_live = live * hw.CHUNK
+    b5_tc, b5_cc, b5_f32 = decoder_bounds(rows_live, 1, 16 * 8 * 6)
     b5 = dict(name="fused_train_fwd", route="cuda", source="scanerf_tpu_torch/csrc/fused_train.cu",
               replaces="scanerf_tpu/ops/pallas/fused_train.py:139", launches=launches["B5"],
               max_abs_err=max(err_b5),
               ms=timed(lambda: ft.train_fwd(pts, meta, table, res, pslab, NW), 5),
               plain_ms=timed(lambda: ft.train_fwd_plain(pts, meta, table, res, pslab, NW), 1),
-              bytes=b5_bytes, ops=live * hw.CHUNK * (2 * MACS + 16 * 8 * 6), library_ms=None)
+              bytes=b5_bytes, ops_ms=max(b5_tc, b5_cc), library_ms=None)
+    b5_nofeat_ms = timed(lambda: ft.train_fwd(pts, meta, table, res, pslab, NW, want_feats=False), 5)
     torch.cuda.empty_cache()
-    # B6's operations: the decoder's three products (forward, input and
-    # weight gradients: 6 x MACS a row), the scatter and dL/du (16 levels x
-    # 8 corners x 16). B6a runs the four large matrices (TC_MACS of MACS a
-    # row) as three TF32 products each on the tensor cores and the rest on
-    # the CUDA cores; the two units run side by side, so the bound is the
-    # larger of their times. Beside it, the same work all in f32 on the CUDA
-    # cores (the bound before B6 used the tensor cores).
-    rows_live = live * hw.CHUNK
-    tc_ms = rows_live * 3 * 6 * TC_MACS / TF32_OPS_PER_S * 1e3
-    cc_ms = rows_live * (6 * (MACS - TC_MACS) + 16 * 8 * 16) / F32_OPS_PER_S * 1e3
-    f32_ms = rows_live * (6 * MACS + 16 * 8 * 16) / F32_OPS_PER_S * 1e3
+    tc_ms, cc_ms, f32_ms = decoder_bounds(rows_live, 3, 16 * 8 * 16)
     adds = torch.zeros(1, dtype=torch.int64, device="cuda")
     ft.train_bwd(pts, meta, table, res, pslab, feats_full, g, NW, adds=adds)
     b6_adds = int(adds)
@@ -664,6 +680,9 @@ def train_phase(render_b3: dict) -> list[dict]:
               bytes=b6_bytes, ops_ms=max(tc_ms, cc_ms), library_ms=None)
     b6a_ms = timed(lambda: ft.decoder_bwd(pts, meta, pslab, feats_full, g), 3)
     real_rows = int((pts[:, 3, :] < NW).sum())
+    print(f"B5 {b5['ms']:.3f} ms (without the features residual {b5_nofeat_ms:.3f}; operation "
+          f"bound {max(b5_tc, b5_cc):.3f} ms with the tensor cores (3xTF32 {b5_tc:.3f}, CUDA "
+          f"cores {b5_cc:.3f}), {b5_f32:.3f} ms all in f32 on the CUDA cores)")
     print(f"B5 {b5['ms']:.3f} ms (plain {b5['plain_ms']:.1f}), B6 {b6['ms']:.3f} ms "
           f"(plain {b6['plain_ms']:.1f}; of it B6a {b6a_ms:.3f} ms, then B4's kernel) on the "
           f"whole stream; B6's operation bound {max(tc_ms, cc_ms):.3f} ms with the tensor cores "
@@ -774,20 +793,23 @@ def print_ptxas(lib: str, log: str) -> None:
 
 def sass_report(build) -> None:
     """Where the toolkit has cuobjdump: the tensor-core (HMMA) and atomic
-    instructions of B6a's and B4's kernels, from the built libraries."""
+    instructions of the kernels of B5, B6a, B7 and B4, from the built
+    libraries."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         print("sass: cuobjdump not found, tensor-core instructions not checked")
         return
-    for lib, kernel in (("fused_train", "decoder_bwd_kernel"), ("hash_encode", "lookup_bwd_kernel")):
+    for lib, kernel in (("fused_train", "train_fwd_kernel"), ("fused_train", "decoder_bwd_kernel"),
+                        ("fused_render", "fused_render_kernel"),
+                        ("hash_encode", "lookup_bwd_kernel")):
         sass = subprocess.run([tool, "-sass", str(build.library_path(lib))], capture_output=True,
                               text=True, check=True).stdout
-        ops: dict[str, int] = {}
         for func in sass.split("Function : ")[1:]:
             if kernel not in func.splitlines()[0]:
                 continue
+            ops: dict[str, int] = {}
             for line in func.splitlines():
                 words = line.split("*/")[1].split() if line.count("*/") >= 2 else []
                 words = [w for w in words if not w.startswith("@")]
@@ -795,7 +817,25 @@ def sass_report(build) -> None:
                                                         "REDG"):
                     op = words[0].rstrip(";")
                     ops[op] = ops.get(op, 0) + 1
-        print(f"sass {kernel}: {ops or 'no HMMA or atomic instructions'}")
+            label = kernel + ("<bf16>" if "bfloat16" in func.splitlines()[0] else "")
+            print(f"sass {label}: {ops or 'no HMMA or atomic instructions'}")
+
+
+def occupancy_report(build) -> None:
+    """The blocks an SM holds of B5, B6a and B7, whose grids are as many
+    blocks as the card holds at once, and each block's dynamic shared
+    memory."""
+    import ctypes
+
+    n = [ctypes.c_int() for _ in range(6)]
+    build.check(build.load("fused_train").scanerf_train_occupancy(
+        *(ctypes.byref(v) for v in n[:4])), "scanerf_train_occupancy")
+    build.check(build.load("fused_render").scanerf_fused_render_occupancy(
+        *(ctypes.byref(v) for v in n[4:])), "scanerf_fused_render_occupancy")
+    fwd, bwd, fwd_smem, bwd_smem, render, render_smem = (v.value for v in n)
+    print(f"blocks an SM holds (dynamic shared memory a block): B5 {fwd} of 512 threads "
+          f"({fwd_smem} B), B6a {bwd} of 512 ({bwd_smem} B), B7 {render} of 512 "
+          f"({render_smem} B)")
 
 
 def main() -> None:
@@ -832,6 +872,7 @@ def main() -> None:
     for name, (_, log) in built.items():
         print_ptxas(name, log)
     sass_report(_build)
+    occupancy_report(_build)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -1017,8 +1058,8 @@ def main() -> None:
         errs[label] = float((out_k - out_p).abs().max())
         if not torch.isfinite(out_k).all() or errs[label] > 1e-4:
             fail(f"B7 ({label} tables) differs from the plain version by {errs[label]} > 1e-4")
-    macs = 32 * 64 + 64 * 64 + 7 * 32 + 48 * 64 + 64 * 64 + 3 * 64
-    b7_ops = live * hw.CHUNK * (2 * macs + LEVELS * 8 * 6)
+    # as B5's: the large products in 3xTF32 beside the rest on the CUDA cores
+    b7_tc, b7_cc, b7_f32 = decoder_bounds(live * hw.CHUNK, 1, LEVELS * 8 * 6)
     b7_bytes = (stream.pts[:, 0:7].numel() * 4 + stream.meta.numel() * 4 + NC * 4
                 + stream.pts.shape[0] * hw.CHUNK * 16
                 + visited * LEVELS * hw.WB * hw.W * 2 * feats.element_size()
@@ -1029,12 +1070,14 @@ def main() -> None:
         launches=launches[True]["B7"], max_abs_err=max(errs.values()),
         ms=timed(lambda: fr.hash_decode_fused(*a, **kw), 5),
         plain_ms=timed(lambda: fr.hash_decode_fused_plain(*a[:6]), 1),
-        bytes=b7_bytes, ops=b7_ops, library_ms=None))
+        bytes=b7_bytes, ops_ms=max(b7_tc, b7_cc), library_ms=None))
     bf16_ms = timed(lambda: fr.hash_decode_fused(stream, ct, scene16.features_flat, res, decs,
                                                  NW, **kw), 5)
     print(f"B7: {stream.pts.shape[0]} chunks, {live} live, {visited} visited blocks: "
           f"max err f32 {errs['f32']:.3g} bf16 {errs['bf16']:.3g} (tol 1e-4); "
-          f"bf16 tables {bf16_ms:.3f} ms")
+          f"bf16 tables {bf16_ms:.3f} ms; operation bound {max(b7_tc, b7_cc):.3f} ms with the "
+          f"tensor cores (3xTF32 {b7_tc:.3f}, CUDA cores {b7_cc:.3f}), {b7_f32:.3f} ms all in f32 "
+          f"on the CUDA cores")
 
     # B3 on the same chunk (the unfused render's stream), f32 and bf16 tables
     a, kw = cap.args["B3"]

@@ -53,8 +53,10 @@ def train_state(jax_state, device="cuda") -> tile_lib.TrainState:
     the field state, the ADMM state, the step, and each optimizer group's
     Adam moments and counts (from optax's ``multi_transform`` state) in the
     state of the port's ``torch.optim.Adam``. Training resumed from it
-    continues the JAX run. Every group must hold an Adam state
-    (``cam_enable=True``)."""
+    continues the JAX run. A state trained with ``cam_enable=False`` holds
+    no Adam state for the cameras (optax's ``set_to_zero``): its optimizer
+    is built as ``build_optimizer`` builds it then, with no camera group.
+    Any other group without an Adam state raises."""
     dev = _device.resolve(device)
 
     def T(a, dtype=None):
@@ -67,9 +69,12 @@ def train_state(jax_state, device="cuda") -> tile_lib.TrainState:
             decoder={n: {k: T(p.field.decoder[n][k], torch.float32) for k in ("w", "b")}
                      for n in decoder_lib.PACK_ORDER}),
         se3_refine=T(p.se3_refine, torch.float32))
-    opt = tile_lib.build_optimizer(tile_lib.TrainConfig(), params)
+    chains = {name: s.inner_state for name, s in jax_state.opt_state.inner_states.items()}
+    # set_to_zero keeps an empty state: the cameras are not optimized
+    cam_enable = len(chains["cam"]) > 0
+    opt = tile_lib.build_optimizer(tile_lib.TrainConfig(cam_enable=cam_enable), params)
     for group in opt.param_groups:
-        chain = jax_state.opt_state.inner_states[group["name"]].inner_state
+        chain = chains[group["name"]]
         adam = [s for s in chain if hasattr(s, "mu")]
         if len(adam) != 1:
             raise ValueError(f"optimizer group {group['name']!r} holds no Adam state")

@@ -1,8 +1,8 @@
 // Device code shared by the hash and decode kernels (hash_encode.cu: B3 and
 // B4, fused_render.cu: B7, fused_train.cu: B5 and B6): the windowed hash
 // gather read straight from the flat [L, T*H*2] tables, its corner
-// addressing (which B4's table scatter also uses), and the ShallowMLP
-// forward with its weights in a decoder slab.
+// addressing (which B4's table scatter also uses), the decoder slab's
+// layout, the activations and the SH-16 of the view direction.
 //
 // Windowed hash: a stream row in window w reads, per level l, the 8 corner
 // slots of the folded prime-XOR hash inside w's 512 entries and sums their
@@ -12,8 +12,8 @@
 // 48 -> 64 (Gauss) -> 64 (Gauss) -> 3 (specular, before its sigmoid).
 // What bounds each kernel on the H100, and what its design does about it,
 // is in the kernel's own source: the gathers read 8-byte pairs inside one
-// 2 MB block of windows a chunk, which L2 holds; B5 and B7 run the decoder
-// on the CUDA cores, B6 its large products on the tensor cores.
+// 2 MB block of windows a chunk, which L2 holds; B5, B6 and B7 run the
+// decoder's large products on the tensor cores (decoder_tc.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,7 +28,7 @@ constexpr int WIN = 512;
 constexpr int MAXL = 16;
 
 // decoder slab layout (f32 offsets; every matrix row-major [out, in] and
-// 16-byte aligned for float4 reads): mirrors ops/kernels/fused_render.py
+// 16-byte aligned): mirrors ops/kernels/fused_render.py
 constexpr int SP0_W = 0, SP1_W = 2048, HEAD_W = 6144, DIR0_W = 6400,
               DIR1_W = 9472, DIR2_W = 13568;
 constexpr int B_SP0 = 13824, B_SP1 = 13888, B_HEAD = 13952, B_DIR0 = 13960,
@@ -57,28 +57,6 @@ __device__ __forceinline__ int chunk_work(const int* meta, int c) {
 #pragma unroll
   for (int s = 0; s < SUBT; ++s) n += meta[(c * SUBT + s) * 4 + 2];
   return n;
-}
-
-// y[o] = act(sum_i w[o][i] * x[i] + b[o]) for o < OUT_N (w rows of length IN)
-template <int IN, int OUT_N, bool GAUSS>
-__device__ __forceinline__ void dense(const float* __restrict__ w,
-                                      const float* __restrict__ b,
-                                      const float (&x)[IN], float* y) {
-#pragma unroll
-  for (int o = 0; o < OUT_N; ++o) {
-    const float4* wr = reinterpret_cast<const float4*>(w + o * IN);
-    float acc = 0.0f;
-#pragma unroll
-    for (int i = 0; i < IN / 4; ++i) {
-      const float4 q = wr[i];
-      acc = fmaf(q.x, x[4 * i], acc);
-      acc = fmaf(q.y, x[4 * i + 1], acc);
-      acc = fmaf(q.z, x[4 * i + 2], acc);
-      acc = fmaf(q.w, x[4 * i + 3], acc);
-    }
-    acc += b[o];
-    y[o] = GAUSS ? gauss(acc) : acc;
-  }
 }
 
 __device__ __forceinline__ float2 load_pair(const float* t, size_t e) {
@@ -149,22 +127,6 @@ __device__ __forceinline__ float2 encode_level(const TT* __restrict__ tl, const 
   return make_float2(a0, a1);
 }
 
-// Features of one row in window w: f[2l], f[2l+1] for l < L, zero above.
-template <typename TT>
-__device__ void encode(const TT* __restrict__ table, long long row_stride,
-                       int L, const int* res, int w, float ux, float uy,
-                       float uz, float (&f)[2 * MAXL]) {
-#pragma unroll
-  for (int l = 0; l < MAXL; ++l) {
-    f[2 * l] = 0.0f;
-    f[2 * l + 1] = 0.0f;
-    if (l >= L) continue;
-    const float2 a = encode_level<TT>(table + (size_t)l * row_stride, res, l, w, ux, uy, uz);
-    f[2 * l] = a.x;
-    f[2 * l + 1] = a.y;
-  }
-}
-
 // Degree-3 SH of the unit direction (x, y, z) into sh[0..15].
 __device__ __forceinline__ void sh16(float x, float y, float z, float* sh) {
   const float xx = x * x, yy = y * y, zz = z * z;
@@ -185,35 +147,6 @@ __device__ __forceinline__ void sh16(float x, float y, float z, float* sh) {
   sh[13] = SH_C34 * x * (4.0f * zz - xx - yy);
   sh[14] = SH_C35 * z * (xx - yy);
   sh[15] = SH_C36 * x * (xx - 3.0f * yy);
-}
-
-// ShallowMLP forward of one row: the 7 head pre-activations (sigma,
-// diffuse x3, tint x3) and the 3 specular pre-activations. ps is the slab.
-__device__ __forceinline__ void decoder_forward(const float* ps,
-                                                const float (&feat)[2 * MAXL],
-                                                float dx, float dy, float dz,
-                                                float (&heads)[7], float (&spec)[3]) {
-  float h[64];
-  dense<32, 64, true>(ps + SP0_W, ps + B_SP0, feat, h);
-  float hid[64];
-  dense<64, 64, false>(ps + SP1_W, ps + B_SP1, h, hid);
-
-  float geo[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) geo[i] = hid[i];
-  dense<32, 7, false>(ps + HEAD_W, ps + B_HEAD, geo, heads);
-
-  const float nrm = sqrtf(dx * dx + dy * dy + dz * dz) + 1e-8f;
-  float din[48];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) din[i] = hid[32 + i];
-  sh16(dx / nrm, dy / nrm, dz / nrm, din + 32);
-
-  float d1[64];
-  dense<48, 64, true>(ps + DIR0_W, ps + B_DIR0, din, d1);
-  float d2[64];
-  dense<64, 64, true>(ps + DIR1_W, ps + B_DIR1, d1, d2);
-  dense<64, 3, false>(ps + DIR2_W, ps + B_DIR2, d2, spec);
 }
 
 }  // namespace scanerf

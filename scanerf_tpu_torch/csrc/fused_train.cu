@@ -7,17 +7,27 @@
 // results as ops/kernels/fused_train.py::train_fwd_plain / train_bwd_plain,
 // up to the order of f32 sums.
 //
-// B5, per stream row: the 16-level windowed gather of decoder.cuh, then the
-// ShallowMLP forward with the training slab (BARF's annealing weights folded
-// into spatial0's input columns). Outputs the 8 training columns (sigma,
-// diffuse x3, tint * specular x3, mean specular^2) and, when asked, the
-// features as the backward's residual [NC, L, 2, CHUNK]. Rows in the
-// sentinel window decode zero features; chunks with no real row write zero
-// columns and zero features. Design: B7's, one block of 256 threads per
-// 1024-row chunk with the slab (56 KB) in shared memory, features and
-// activations in registers. Bound on the H100: the ~13.7 K f32 multiply-adds
-// of the decoder per live row (CUDA cores); the gathers stay in one 2 MB
-// block of windows per chunk, which L2 holds.
+// B5: the training stream's decoder forward in warp tiles of 16 rows
+// (decoder_tc.cuh::warp_tile): each lane gathers 8 (row, level) pairs with
+// decoder.cuh's encode_level, so the features are bit for bit B3's, straight
+// into the A fragments of spatial0; the four large layers run on the tensor
+// cores in 3xTF32 with every activation in registers; the heads and dir2 on
+// the CUDA cores. The features go out as the backward's residual [NC, L,
+// 2, CHUNK] (skipped when no gradient is wanted, as in the warp loss's
+// visibility re-render), each store a full 32-byte sector per group of 8
+// rows; the 8 training columns (sigma, diffuse x3, tint * specular x3, mean
+// specular^2) two float4s a row. The training slab carries BARF's annealing
+// weights folded into spatial0's input columns. Rows in the sentinel window
+// decode zero features; chunks with no real row write zero columns and zero
+// features. One block of 16 warps an SM (128 registers a thread) walks the
+// chunks (grid-stride) with the slab staged once in shared memory, its
+// large matrices already split (126 KB). Bound on the H100: the ~13.3 K
+// multiply-adds of the large layers a live row, three times over on the
+// tensor cores, and the features residual (553 MB a step) set the floor.
+// What sets the time is the feeding of the tensor cores, the fragments'
+// shared-memory reads among it, beside the gather's latency, 128 random
+// 8-byte L2 reads a row. The warps share no barrier, so while one waits on
+// its gather the others' products run.
 //
 // B6 is two launches. The first, B6a here, runs per live chunk in tiles of
 // 64 rows: the decoder forward is recomputed from the saved features, then
@@ -29,43 +39,30 @@
 // d_feats into the dense, zeroed table gradient, summed per chunk in shared
 // memory, and writes dL/du into dpts rows 0-2: B6a's tiles could not hold a
 // chunk's level slabs beside their activations.
-// B6a keeps every activation of the tile in shared memory (one stash row
-// per feature, the tile's rows along it at stride RS = 72) beside the four
-// large weight matrices (rows padded by 8 floats): 210 KB, one block of 512
-// threads an SM. Those four matrices (32 -> 64, 64 -> 64, 48 -> 64, 64 ->
-// 64: 97% of the multiply-adds) run on the tensor cores with mma.sync
-// m16n8k8 TF32 in all three roles: the forward, the input cotangents and
-// the weight-gradient sums. TF32 keeps 11 bits of each operand, too few for
-// the checks against the plain version, so each operand is split, x = hi +
-// lo, hi rounded to TF32 with two integer operations (cvt.rna.tf32.f32
-// cost more than the products), and lo*hi + hi*lo + hi*hi is summed in f32
-// (3xTF32, about f32's accuracy at three tensor-core products for one).
-// A warp takes a row of 16 x 8 output tiles, so that it reads each A
-// fragment once for its tiles; every fragment is read as 8-byte pairs that
-// hit 32 banks (see load_a_rows). For the weight gradients each warp owns
-// fixed tiles of each matrix and keeps their sums in registers over all the
-// chunks its block visits (grid-stride over chunks), adding them to global
-// memory once; a tile's 64 rows are summed in the tensor core, the tiles in
-// f32 on the CUDA cores. The narrow heads (7 x 32, 3 x 64), the
-// activations' derivatives and the bias sums stay on the CUDA cores. Chunks
-// with no real row zero dpts rows 3-7 and do nothing else. Bound on the
-// H100: the ~41 K multiply-adds a live row, three times over on the
-// tensor cores, set the floor; the instructions that feed the tensor cores
-// (fragment reads, the splits), the narrow layers and the tile's 13
-// barriers with one block an SM set the time.
+// B6a keeps every activation of the tile in shared memory beside the four
+// large weight matrices: 210 KB, one block of 512 threads an SM. Those four
+// matrices run on the tensor cores (decoder_tc.cuh) in all three roles:
+// the forward, the input cotangents and the weight-gradient sums. For the
+// weight gradients each warp owns fixed tiles of each matrix and keeps
+// their sums in registers over all the chunks its block visits
+// (grid-stride over chunks), adding them to global memory once; a tile's 64
+// rows are summed in the tensor core, the tiles in f32 on the CUDA cores.
+// The narrow heads (7 x 32, 3 x 64), the activations' derivatives and the
+// bias sums stay on the CUDA cores. Chunks with no real row zero dpts rows
+// 3-7 and do nothing else. Bound on the H100: the ~41 K multiply-adds a
+// live row, three times over on the tensor cores, set the floor; the
+// instructions that feed the tensor cores (fragment reads, the splits), the
+// narrow layers and the tile's 13 barriers with one block an SM set the
+// time.
 
-#include "decoder.cuh"
+#include "decoder_tc.cuh"
 
 namespace {
 
 using namespace scanerf;
 
-constexpr int FWD_THREADS = 256;
+constexpr int FWD_THREADS = 512;  // 16 warps, one block an SM
 constexpr int BWD_THREADS = 512;
-constexpr int NWARP = BWD_THREADS / 32;
-constexpr int R = 64;       // rows per backward tile
-constexpr int MT = R / 16;  // mma tiles along the rows
-constexpr int RS = R + 8;   // stride of a stash row
 
 // stash rows of the backward tile, each [RS] floats; a row index is the
 // vector element, the column the tile row
@@ -84,318 +81,62 @@ constexpr int S_G = 506;    // 8 column cotangents
 constexpr int S_DIR = 514;  // 3 raw view dirs
 constexpr int S_ROWS = 517;
 constexpr float GAUSS_2K = 2.0f * GAUSS_K;
-
-// the four large matrices in shared memory after the stash, [out][in] with
-// rows of in + 8 floats
-constexpr int WS0 = 32 + 8, WS1 = 64 + 8, WSD0 = 48 + 8, WSD1 = 64 + 8;
-constexpr int SW0 = S_ROWS * RS, SW1 = SW0 + 64 * WS0, SWD0 = SW1 + 64 * WS1,
-              SWD1 = SWD0 + 64 * WSD0, S_FLOATS = SWD1 + 64 * WSD1;
+// the stash, then the four large matrices (stage_decoder)
+constexpr int S_FLOATS = S_ROWS * RS + W_FLOATS;
 
 // ---------------------------------------------------------------------------
 // B5
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(FWD_THREADS)
+__global__ void __launch_bounds__(FWD_THREADS, 1)
 train_fwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
                  const float* __restrict__ table, long long row_stride, int L,
-                 const int* __restrict__ res_g, const float* __restrict__ slab,
-                 int nw, float* __restrict__ cols, float* __restrict__ feats) {
+                 const int* __restrict__ res_g, const float* __restrict__ ps, int nw,
+                 int NC, float* __restrict__ cols, float* __restrict__ feats) {
   extern __shared__ float4 smem4[];
-  float* ps = reinterpret_cast<float*>(smem4);  // [PSLAB]
+  float* sW = reinterpret_cast<float*>(smem4);  // the slab, staged for the forward
   __shared__ int res[3 * MAXL];
-  const int c = blockIdx.x;
-  float4* cols4 = reinterpret_cast<float4*>(cols) + (size_t)c * CHUNK * 2;
-  float* fo = feats ? feats + (size_t)c * L * 2 * CHUNK : nullptr;
-
-  if (chunk_work(meta, c) == 0) {
-    for (int t = threadIdx.x; t < 2 * CHUNK; t += FWD_THREADS)
-      cols4[t] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (fo)
-      for (int t = threadIdx.x; t < L * 2 * CHUNK; t += FWD_THREADS) fo[t] = 0.0f;
-    return;
-  }
-
-  const float4* src = reinterpret_cast<const float4*>(slab);
-  for (int i = threadIdx.x; i < PSLAB / 4; i += FWD_THREADS) smem4[i] = src[i];
-  for (int i = threadIdx.x; i < 3 * L; i += FWD_THREADS) res[i] = res_g[i];
+  const int tid = threadIdx.x, t = tid & 3;
+  stage_forward<FWD_THREADS>(ps, sW);
+  for (int i = tid; i < 3 * L; i += FWD_THREADS) res[i] = res_g[i];
   __syncthreads();
 
-  const float* prow = pts + (size_t)c * 8 * CHUNK;
-  for (int t = threadIdx.x; t < CHUNK; t += FWD_THREADS) {
-    const float ux = prow[t], uy = prow[CHUNK + t], uz = prow[2 * CHUNK + t];
-    const int w = (int)prow[3 * CHUNK + t];
-    const float dx = prow[4 * CHUNK + t], dy = prow[5 * CHUNK + t], dz = prow[6 * CHUNK + t];
-
-    float feat[2 * MAXL];
-    if (w < nw) {
-      encode<float>(table, row_stride, L, res, w, ux, uy, uz, feat);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 2 * MAXL; ++i) feat[i] = 0.0f;
+  for (int c = blockIdx.x; c < NC; c += gridDim.x) {
+    float4* cols4 = reinterpret_cast<float4*>(cols) + (size_t)c * CHUNK * 2;
+    float* fo = feats ? feats + (size_t)c * L * 2 * CHUNK : nullptr;
+    if (chunk_work(meta, c) == 0) {
+      for (int i = tid; i < 2 * CHUNK; i += FWD_THREADS)
+        cols4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (fo)
+        for (int i = tid; i < L * 2 * CHUNK / 4; i += FWD_THREADS)
+          reinterpret_cast<float4*>(fo)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      continue;
     }
-    if (fo) {
+    const float* prow = pts + (size_t)c * 8 * CHUNK;
+    for (int r0 = (tid >> 5) * WR; r0 < CHUNK; r0 += FWD_THREADS / 32 * WR) {
+      float hd0[7], hd8[7], sp0[3], sp8[3];
+      warp_tile<float>(prow, r0, table, row_stride, L, res, nw, sW, fo, hd0, hd8, sp0, sp8);
+      // the 8 columns of the tile's 16 rows, two float4s a row: lane t
+      // writes half t & 1 of row g (t < 2) or g + 8
+      const bool lower = t >> 1;
+      float hd[7], sp[3];
 #pragma unroll
-      for (int i = 0; i < 2 * MAXL; ++i)
-        if (i < 2 * L) fo[(size_t)i * CHUNK + t] = feat[i];
-    }
-
-    float heads[7], spec[3];
-    decoder_forward(ps, feat, dx, dy, dz, heads, spec);
-    const float s0 = sigmoid(spec[0]), s1 = sigmoid(spec[1]), s2 = sigmoid(spec[2]);
-    cols4[2 * t] = make_float4(softplus(heads[0]), sigmoid(heads[1]),
-                               sigmoid(heads[2]), sigmoid(heads[3]));
-    cols4[2 * t + 1] = make_float4(sigmoid(heads[4]) * s0, sigmoid(heads[5]) * s1,
-                                   sigmoid(heads[6]) * s2,
-                                   (s0 * s0 + s1 * s1 + s2 * s2) / 3.0f);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B6a building blocks: the large layers on the tensor cores (3xTF32)
-// ---------------------------------------------------------------------------
-
-// x = hi + lo to about f32's precision: hi is x rounded to TF32 (to nearest,
-// ties away from zero, as cvt.rna.tf32.f32 does, but with two integer
-// operations), lo the rest, whose low 13 bits the tensor core ignores.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-
-// Fragment loads. The sum over k of a product is the same in any order of
-// k, and the rows of A may be taken in any order that the result's rows
-// follow, so each operand is read as 8-byte pairs where memory allows:
-// lane (g, t) = (lane / 4, lane % 4) takes the fragment's k columns t and
-// t + 4 as the pair 2t, 2t + 1 where k runs along memory ("kc"), and the
-// fragment's rows g and g + 8 as the tile rows 2g, 2g + 1 where the rows
-// run along memory. In the forward, where both happen, lanes t >= 2 take
-// their k pair in swapped order, so that the four lanes' first k are 0, 2,
-// 5, 7: 0, 16, 8, 24 banks apart at the stash row stride RS = 8 (mod 32).
-// With that and the weight rows WS = 8 or 24 (mod 32), every read below
-// hits 32 banks.
-
-__device__ __forceinline__ void split4(float2 p, float2 q, uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                       int i0, int i1, int i2, int i3) {
-  split_tf32(p.x, hi[i0], lo[i0]);
-  split_tf32(p.y, hi[i1], lo[i1]);
-  split_tf32(q.x, hi[i2], lo[i2]);
-  split_tf32(q.y, hi[i3], lo[i3]);
-}
-
-// A over the tile's rows: element (row, k) at X[k * RS + row], rows paired;
-// with KC the k columns paired too, swapped for t >= 2 (forward), else k
-// and k + 4 (input cotangent, whose B cannot pair k).
-template <bool KC>
-__device__ __forceinline__ FragA load_a_rows(const float* X) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int k0 = KC ? 2 * t + (t >> 1) : t, k1 = KC ? 2 * t + 1 - (t >> 1) : t + 4;
-  const float2 p = *reinterpret_cast<const float2*>(X + k0 * RS + 2 * g);
-  const float2 q = *reinterpret_cast<const float2*>(X + k1 * RS + 2 * g);
-  FragA f;
-  split4(p, q, f.hi, f.lo, 0, 1, 2, 3);
-  return f;
-}
-
-// A with k along memory: element (m, k) at P[m * S + k], k paired
-// (weight gradients: k is the tile's row).
-template <int S>
-__device__ __forceinline__ FragA load_a_kc(const float* P) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const float2 p = *reinterpret_cast<const float2*>(P + g * S + 2 * t);
-  const float2 q = *reinterpret_cast<const float2*>(P + (g + 8) * S + 2 * t);
-  FragA f;
-  split4(p, q, f.hi, f.lo, 0, 2, 1, 3);
-  return f;
-}
-
-// B with k along memory: element (k, n) at P[n * S + k], k paired; with
-// SWAP swapped for t >= 2, as load_a_rows<true> takes them.
-template <int S, bool SWAP>
-__device__ __forceinline__ FragB load_b_kc(const float* P) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const float2 p = *reinterpret_cast<const float2*>(P + g * S + 2 * t);
-  const bool sw = SWAP && t >= 2;
-  FragB f;
-  split_tf32(sw ? p.y : p.x, f.hi[0], f.lo[0]);
-  split_tf32(sw ? p.x : p.y, f.hi[1], f.lo[1]);
-  return f;
-}
-
-// B with n along memory: element (k, n) at P[k * S + n], k and k + 4.
-template <int S>
-__device__ __forceinline__ FragB load_b_nc(const float* P) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  FragB f;
-  split_tf32(P[t * S + g], f.hi[0], f.lo[0]);
-  split_tf32(P[(t + 4) * S + g], f.hi[1], f.lo[1]);
-  return f;
-}
-
-// d += a b in 3xTF32, the small cross terms first. The tensor core sums in
-// f32 with a bias: fine over one product's k (at most 24 terms here), not
-// over a weight gradient's millions of rows (see mma_acc).
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// Element q of a lane's 16 x 8 accumulator tile: column 2t (+ 1 for odd q);
-// row g (+ 8 for q >= 2), or, where the rows were paired, the tile row 2g
-// (+ 1 for q >= 2).
-__device__ __forceinline__ int acc_row(int q) { return ((threadIdx.x & 31) >> 2) + (q >> 1) * 8; }
-__device__ __forceinline__ int acc_row_paired(int q) {
-  return 2 * ((threadIdx.x & 31) >> 2) + (q >> 1);
-}
-__device__ __forceinline__ int acc_col(int q) { return 2 * (threadIdx.x & 3) + (q & 1); }
-
-// The tiles of a product with MTILES x NTILES tiles of 16 x 8 that a warp
-// takes: one row of tiles, (warp % MTILES), and the columns warp / MTILES +
-// j * (NWARP / MTILES) for j < tiles_per_warp, so that the warp loads each A
-// fragment once for all its tiles.
-template <int MTILES, int NTILES>
-struct WarpTiles {
-  static_assert(NWARP % MTILES == 0, "the warps split evenly over the tile rows");
-  static constexpr int NG = NWARP / MTILES;
-  static constexpr int TPW = (NTILES + NG - 1) / NG;
-  __device__ static int m0() { return ((threadIdx.x >> 5) % MTILES) * 16; }
-  __device__ static int n0(int j) { return ((threadIdx.x >> 5) / MTILES + j * NG) * 8; }
-  __device__ static bool has(int j) {
-    return NTILES % NG == 0 || (threadIdx.x >> 5) / MTILES + j * NG < NTILES;
-  }
-};
-
-// Z[o][r] = sum_i W[o][i] X[i][r] + b[o] for the 64 outputs of a layer whose
-// weights sW (row stride WS) are in shared memory; with A, also A[o][r] =
-// gauss(Z). Tiles of (rows, outputs).
-template <int I, int WS>
-__device__ __forceinline__ void mma_fwd(const float* sW, const float* __restrict__ b,
-                                        const float* X, float* Z, float* A) {
-  using T = WarpTiles<MT, 8>;
-  const int m0 = T::m0();
-  float d[T::TPW][4] = {};
+      for (int o = 0; o < 7; ++o) hd[o] = lower ? hd8[o] : hd0[o];
 #pragma unroll
-  for (int k0 = 0; k0 < I; k0 += 8) {
-    const FragA a = load_a_rows<true>(X + k0 * RS + m0);
-#pragma unroll
-    for (int j = 0; j < T::TPW; ++j)
-      if (T::has(j)) mma3(d[j], a, load_b_kc<WS, true>(sW + T::n0(j) * WS + k0));
-  }
-#pragma unroll
-  for (int j = 0; j < T::TPW; ++j) {
-    if (!T::has(j)) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = m0 + acc_row_paired(q), o = T::n0(j) + acc_col(q);
-      const float v = d[j][q] + __ldg(b + o);
-      Z[o * RS + r] = v;
-      if (A) A[o * RS + r] = gauss(v);
+      for (int k = 0; k < 3; ++k) sp[k] = sigmoid(lower ? sp8[k] : sp0[k]);
+      const int row = r0 + ((tid & 31) >> 2) + (lower ? 8 : 0);
+      cols4[2 * row + (t & 1)] =
+          (t & 1) ? make_float4(sigmoid(hd[4]) * sp[0], sigmoid(hd[5]) * sp[1],
+                                sigmoid(hd[6]) * sp[2],
+                                (sp[0] * sp[0] + sp[1] * sp[1] + sp[2] * sp[2]) / 3.0f)
+                  : make_float4(softplus(hd[0]), sigmoid(hd[1]), sigmoid(hd[2]), sigmoid(hd[3]));
     }
   }
 }
 
-// Input cotangent of a 64-output layer for its first NI inputs: epi(i, r,
-// sum_o dY[o][r] W[o][i]). Tiles of (rows, inputs).
-template <int NI, int WS, typename Epi>
-__device__ __forceinline__ void mma_bwd(const float* sW, const float* dY, Epi epi) {
-  using T = WarpTiles<MT, NI / 8>;
-  const int m0 = T::m0();
-  float d[T::TPW][4] = {};
-#pragma unroll
-  for (int k0 = 0; k0 < 64; k0 += 8) {
-    const FragA a = load_a_rows<false>(dY + k0 * RS + m0);
-#pragma unroll
-    for (int j = 0; j < T::TPW; ++j)
-      if (T::has(j)) mma3(d[j], a, load_b_nc<WS>(sW + k0 * WS + T::n0(j)));
-  }
-#pragma unroll
-  for (int j = 0; j < T::TPW; ++j) {
-    if (!T::has(j)) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) epi(T::n0(j) + acc_col(q), m0 + acc_row_paired(q), d[j][q]);
-  }
-}
-
-// Weight-gradient sums of a [64, I] matrix over the tile's rows, tiles of
-// (outputs, inputs): acc[j] is this warp's tile j, kept over all chunks.
-// The tile's sum is taken in a fresh accumulator and added to acc on the
-// CUDA cores (round to nearest): summed in the tensor core over all the
-// rows a block visits, the gradient drifts beyond the checks' tolerance.
-template <int I>
-using AccTiles = WarpTiles<4, I / 8>;
-
-template <int I>
-__device__ __forceinline__ void mma_acc(float (&acc)[AccTiles<I>::TPW][4], const float* dY,
-                                        const float* X) {
-  using T = AccTiles<I>;
-  const int m0 = T::m0();
-  float d[T::TPW][4] = {};
-#pragma unroll
-  for (int k0 = 0; k0 < R; k0 += 8) {
-    const FragA a = load_a_kc<RS>(dY + m0 * RS + k0);
-#pragma unroll
-    for (int j = 0; j < T::TPW; ++j)
-      if (T::has(j)) mma3(d[j], a, load_b_kc<RS, false>(X + T::n0(j) * RS + k0));
-  }
-#pragma unroll
-  for (int j = 0; j < T::TPW; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] += d[j][q];
-}
-
-template <int I>
-__device__ __forceinline__ void flush_acc(const float (&acc)[AccTiles<I>::TPW][4],
-                                          float* dst) {
-  using T = AccTiles<I>;
-#pragma unroll
-  for (int j = 0; j < T::TPW; ++j) {
-    if (!T::has(j)) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      atomicAdd(dst + (T::m0() + acc_row(q)) * I + T::n0(j) + acc_col(q), acc[j][q]);
-  }
-}
-
-// Copy an [O, I] matrix of the slab into shared memory with rows of WS.
-template <int O, int I, int WS>
-__device__ __forceinline__ void stage_weights(const float* __restrict__ src, float* dst) {
-  for (int e = threadIdx.x; e < O * I; e += BWD_THREADS) dst[(e / I) * WS + e % I] = src[e];
-}
-
 // ---------------------------------------------------------------------------
-// B6a building blocks on the CUDA cores: the narrow heads
+// B6a building blocks on the CUDA cores
 // ---------------------------------------------------------------------------
-
-// Z[o][r] = sum_i W[o][i] X[i][r] + b[o] for a narrow layer, one output of
-// one row a thread.
-template <int O, int I>
-__device__ __forceinline__ void narrow_fwd(const float* __restrict__ W,
-                                           const float* __restrict__ b, const float* X,
-                                           float* Z) {
-  for (int e = threadIdx.x; e < O * R; e += BWD_THREADS) {
-    const int o = e / R, r = e % R;
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int i = 0; i < I; ++i) acc = fmaf(__ldg(W + o * I + i), X[i * RS + r], acc);
-    Z[o * RS + r] = acc + __ldg(b + o);
-  }
-}
 
 // Input cotangent of a narrow layer: epi(i, r, sum_o dY[o][r] W[o][i]).
 template <int O, int I, typename Epi>
@@ -471,19 +212,20 @@ decoder_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
   extern __shared__ float4 smem4[];
   float* st = reinterpret_cast<float*>(smem4);  // the stash [S_ROWS][RS], then the weights
   const int tid = threadIdx.x;
-  float* sW0 = st + SW0;
-  float* sW1 = st + SW1;
-  float* sWd0 = st + SWD0;
-  float* sWd1 = st + SWD1;
-  stage_weights<64, 32, WS0>(ps + SP0_W, sW0);
-  stage_weights<64, 64, WS1>(ps + SP1_W, sW1);
-  stage_weights<64, 48, WSD0>(ps + DIR0_W, sWd0);
-  stage_weights<64, 64, WSD1>(ps + DIR1_W, sWd1);
+  float* sW = st + S_ROWS * RS;
+  float* sW0 = sW + W_SP0;
+  float* sW1 = sW + W_SP1;
+  float* sWd0 = sW + W_DIR0;
+  float* sWd1 = sW + W_DIR1;
+  stage_decoder<BWD_THREADS>(ps, sW);
 
   // this warp's weight-gradient tiles of spatial0, spatial1, dir0 and dir1;
   // this thread's entry of heads and dir2 and its bias entries
-  float a_sp0[AccTiles<32>::TPW][4] = {}, a_sp1[AccTiles<64>::TPW][4] = {},
-        a_dir0[AccTiles<48>::TPW][4] = {}, a_dir1[AccTiles<64>::TPW][4] = {};
+  using A32 = AccTiles<32, BWD_THREADS>;
+  using A48 = AccTiles<48, BWD_THREADS>;
+  using A64 = AccTiles<64, BWD_THREADS>;
+  float a_sp0[A32::TPW][4] = {}, a_sp1[A64::TPW][4] = {}, a_dir0[A48::TPW][4] = {},
+        a_dir1[A64::TPW][4] = {};
   float a_head = 0.f, a_dir2 = 0.f;
   float b_sp0 = 0.f, b_sp1 = 0.f, b_head = 0.f, b_dir0 = 0.f, b_dir1 = 0.f, b_dir2 = 0.f;
   __syncthreads();
@@ -536,16 +278,16 @@ decoder_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
       __syncthreads();
 
       // -- decoder forward, recomputed from the saved features
-      mma_fwd<32, WS0>(sW0, ps + B_SP0, F, Z0, H0);
+      mma_fwd<32, WS0, BWD_THREADS>(sW0, ps + B_SP0, F, Z0, H0);
       __syncthreads();
-      mma_fwd<64, WS1>(sW1, ps + B_SP1, H0, HH, nullptr);
+      mma_fwd<64, WS1, BWD_THREADS>(sW1, ps + B_SP1, H0, HH, nullptr);
       __syncthreads();
-      narrow_fwd<7, 32>(ps + HEAD_W, ps + B_HEAD, HH, HD);
-      mma_fwd<48, WSD0>(sWd0, ps + B_DIR0, HH + 32 * RS, ZD0, D1);
+      narrow_fwd<7, 32, BWD_THREADS>(ps + HEAD_W, ps + B_HEAD, HH, HD);
+      mma_fwd<48, WSD0, BWD_THREADS>(sWd0, ps + B_DIR0, HH + 32 * RS, ZD0, D1);
       __syncthreads();
-      mma_fwd<64, WSD1>(sWd1, ps + B_DIR1, D1, ZD1, D2);
+      mma_fwd<64, WSD1, BWD_THREADS>(sWd1, ps + B_DIR1, D1, ZD1, D2);
       __syncthreads();
-      narrow_fwd<3, 64>(ps + DIR2_W, ps + B_DIR2, D2, SP);
+      narrow_fwd<3, 64, BWD_THREADS>(ps + DIR2_W, ps + B_DIR2, D2, SP);
       __syncthreads();
 
       // -- the 8 columns' pullback to the head and specular pre-acts
@@ -580,32 +322,32 @@ decoder_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
       });
       __syncthreads();
       // -- dir1 -> dir0's pre-act cotangent
-      mma_acc<64>(a_dir1, ZD1, D1);
+      mma_acc<64, BWD_THREADS>(a_dir1, ZD1, D1);
       bias_acc<64>(b_dir1, ZD1);
-      mma_bwd<64, WSD1>(sWd1, ZD1, [&](int i, int r, float v) {
+      mma_bwd<64, WSD1, BWD_THREADS>(sWd1, ZD1, [&](int i, int r, float v) {
         ZD0[i * RS + r] = v * GAUSS_2K * ZD0[i * RS + r] * D1[i * RS + r];
       });
       __syncthreads();
       // -- dir0 -> (spatial1 out 32-63, SH); heads -> spatial1 out 0-31
-      mma_acc<48>(a_dir0, ZD0, HH + 32 * RS);
+      mma_acc<48, BWD_THREADS>(a_dir0, ZD0, HH + 32 * RS);
       bias_acc<64>(b_dir0, ZD0);
-      mma_bwd<48, WSD0>(sWd0, ZD0, [&](int i, int r, float v) {
+      mma_bwd<48, WSD0, BWD_THREADS>(sWd0, ZD0, [&](int i, int r, float v) {
         if (i < 32) D1[(32 + i) * RS + r] = v;
         else ZD1[(i - 32) * RS + r] = v;
       });
       narrow_bwd<7, 32>(ps + HEAD_W, HD, [&](int i, int r, float v) { D1[i * RS + r] = v; });
       __syncthreads();
       // -- spatial1 -> spatial0's pre-act cotangent
-      mma_acc<64>(a_sp1, D1, H0);
+      mma_acc<64, BWD_THREADS>(a_sp1, D1, H0);
       bias_acc<64>(b_sp1, D1);
-      mma_bwd<64, WS1>(sW1, D1, [&](int i, int r, float v) {
+      mma_bwd<64, WS1, BWD_THREADS>(sW1, D1, [&](int i, int r, float v) {
         Z0[i * RS + r] = v * GAUSS_2K * Z0[i * RS + r] * H0[i * RS + r];
       });
       __syncthreads();
       // -- spatial0 -> features' cotangent (BARF weights are in the slab)
-      mma_acc<32>(a_sp0, Z0, F);
+      mma_acc<32, BWD_THREADS>(a_sp0, Z0, F);
       bias_acc<64>(b_sp0, Z0);
-      mma_bwd<32, WS0>(sW0, Z0, [&](int i, int r, float v) { D2[i * RS + r] = v; });
+      mma_bwd<32, WS0, BWD_THREADS>(sW0, Z0, [&](int i, int r, float v) { D2[i * RS + r] = v; });
       __syncthreads();
 
       // -- the features' cotangent out; dL/d dirs through the SH and
@@ -641,10 +383,10 @@ decoder_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
     }
   }
 
-  flush_acc<32>(a_sp0, dslab + SP0_W);
-  flush_acc<64>(a_sp1, dslab + SP1_W);
-  flush_acc<48>(a_dir0, dslab + DIR0_W);
-  flush_acc<64>(a_dir1, dslab + DIR1_W);
+  flush_acc<32, BWD_THREADS>(a_sp0, dslab + SP0_W);
+  flush_acc<64, BWD_THREADS>(a_sp1, dslab + SP1_W);
+  flush_acc<48, BWD_THREADS>(a_dir0, dslab + DIR0_W);
+  flush_acc<64, BWD_THREADS>(a_dir1, dslab + DIR1_W);
   flush_entry<7 * 32>(a_head, dslab + HEAD_W);
   flush_entry<3 * 64>(a_dir2, dslab + DIR2_W);
   flush_entry<64>(b_sp0, dslab + B_SP0);
@@ -662,13 +404,13 @@ extern "C" int scanerf_train_fwd(const float* pts, const int* meta, const float*
                                  const float* slab, int nw, int NC, float* cols,
                                  float* feats, void* stream) {
   if (L > MAXL) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * PSLAB;
-  cudaError_t e = cudaFuncSetAttribute(
-      train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int grid = 0;
+  const size_t smem = sizeof(float) * F_FLOATS;
+  cudaError_t e = persistent_grid(train_fwd_kernel, FWD_THREADS, smem, NC, &grid);
   if (e != cudaSuccess) return (int)e;
-  if (NC > 0) {
-    train_fwd_kernel<<<NC, FWD_THREADS, smem, (cudaStream_t)stream>>>(
-        pts, meta, table, row_stride, L, res, slab, nw, cols, feats);
+  if (grid > 0) {
+    train_fwd_kernel<<<grid, FWD_THREADS, smem, (cudaStream_t)stream>>>(
+        pts, meta, table, row_stride, L, res, slab, nw, NC, cols, feats);
   }
   return (int)cudaGetLastError();
 }
@@ -680,21 +422,23 @@ extern "C" int scanerf_train_bwd(const float* pts, const int* meta, const float*
                                  const float* feats, const float* g, int L, int NC,
                                  float* dfeat, float* dpts, float* dslab, void* stream) {
   if (L > MAXL) return (int)cudaErrorInvalidValue;
+  int grid = 0;
   const size_t smem = sizeof(float) * S_FLOATS;
-  cudaError_t e = cudaFuncSetAttribute(
-      decoder_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = persistent_grid(decoder_bwd_kernel, BWD_THREADS, smem, NC, &grid);
   if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decoder_bwd_kernel,
-                                                         BWD_THREADS, smem)) != cudaSuccess)
-    return (int)e;
-  const int grid = NC < sms * max(per_sm, 1) ? NC : sms * max(per_sm, 1);
   if (grid > 0) {
     decoder_bwd_kernel<<<grid, BWD_THREADS, smem, (cudaStream_t)stream>>>(
         pts, meta, slab, feats, g, L, NC, dfeat, dpts, dslab);
   }
   return (int)cudaGetLastError();
+}
+
+// Blocks an SM holds of B5 and of B6a (the occupancy their persistent
+// grids get), and the dynamic shared memory of a block of each, in bytes.
+extern "C" int scanerf_train_occupancy(int* fwd, int* bwd, int* fwd_smem, int* bwd_smem) {
+  *fwd_smem = (int)(sizeof(float) * F_FLOATS);
+  *bwd_smem = (int)(sizeof(float) * S_FLOATS);
+  cudaError_t e = blocks_per_sm(train_fwd_kernel, FWD_THREADS, *fwd_smem, fwd);
+  if (e != cudaSuccess) return (int)e;
+  return (int)blocks_per_sm(decoder_bwd_kernel, BWD_THREADS, *bwd_smem, bwd);
 }

@@ -4,18 +4,22 @@ Replaces the Pallas kernel ``scanerf_tpu/ops/pallas/fused_render.py::_fused_kern
 (launched by ``hash_decode_fused``, fused_render.py:303). For every
 stream row the CUDA kernel (``csrc/fused_render.cu``) gathers 16 levels x
 8 corners x 2 features from the flat [L, T*H*2] tables (f32 or bf16,
-widened to f32), keeps the 32 features in registers and runs the whole
-ShallowMLP written out in the kernel; only (sigma, diffuse +
-tint*specular) reach device memory. One block per 1024-row chunk: the
-chunk's tile id picks that tile's decoder slab, staged once into shared
-memory; chunks whose rows are all sentinels write zeros and do no work.
+widened to f32) and runs the whole ShallowMLP; only (sigma, diffuse +
+tint*specular) reach device memory. One block of 16 warps an SM walks the
+chunks; each warp decodes 16 rows at a time with its activations in
+registers: the four large layers on the tensor cores in 3xTF32 (about
+f32's accuracy), the narrow heads on the CUDA cores, with the decoder slab
+of the chunk's tile (chunk tile ids are non-decreasing along the stream,
+so a block restages the slab only when the tile changes); chunks whose
+rows are all sentinels write zeros and do no work.
 
-What bounds it on the H100: the decoder's ~13.7 K multiply-adds per live
-row in f32 (no tensor cores in this first version) against the table
-gathers, which stay inside one 2 MB block of windows per chunk and so
-mostly hit L2. The output is the reference's: rows of live chunks with
-the sentinel window get the decoder of zero features; the view direction
-is normalized as ``apply_decoder`` does, d / (|d| + 1e-8).
+What bounds it on the H100: the tensor-core products set the floor;
+feeding the tensor cores and the table gathers' L2 latency (they stay
+inside one 2 MB block of windows per chunk) set the time, and warps that
+share no barrier overlap one's gather with the others' products. The
+output is the reference's: rows of live chunks with the sentinel window
+get the decoder of zero features; the view direction is normalized as
+``apply_decoder`` does, d / (|d| + 1e-8).
 """
 
 from __future__ import annotations
@@ -28,8 +32,8 @@ from scanerf_tpu_torch import _build
 from scanerf_tpu_torch.models import decoder as decoder_lib
 from scanerf_tpu_torch.ops.kernels.hash_encode import CHUNK, W, lookup_fwd_plain
 
-# decoder slab layout (f32 offsets; every matrix row-major [out, in] and
-# 16-byte aligned for float4 reads). Mirrored in csrc/fused_render.cu.
+# decoder slab layout (f32 offsets; every matrix row-major [out, in]).
+# Mirrored in csrc/decoder.cuh.
 SP0_W, SP1_W, HEAD_W, DIR0_W, DIR1_W, DIR2_W = 0, 2048, 6144, 6400, 9472, 13568
 B_SP0, B_SP1, B_HEAD, B_DIR0, B_DIR1, B_DIR2 = 13824, 13888, 13952, 13960, 14024, 14088
 PSLAB = 14092

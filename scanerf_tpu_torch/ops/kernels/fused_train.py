@@ -11,8 +11,14 @@ _ft_fwd_kernel`` (B5, launched at fused_train.py:348) and ``_ft_bwd_kernel``
   the training slab -> 8 columns (sigma, diffuse x3, tint * specular x3,
   mean specular^2) and the features [NC, L, 2, CHUNK] as the backward's
   residual (skipped when no gradient is wanted, as in the warp loss's
-  visibility re-render). One block per 1024-row chunk, the slab in shared
-  memory; the decoder's f32 multiply-adds bound it.
+  visibility re-render). One block of 16 warps an SM walks the chunks;
+  each warp decodes 16 rows at a time with its activations in registers:
+  the gather straight into the first layer's operands, the four large
+  layers on the tensor cores in 3xTF32 (about f32's accuracy), the narrow
+  heads on the CUDA cores. On the H100 the tensor-core products and the
+  residual's bytes set the floor; feeding the tensor cores and the
+  gather's L2 latency set the time, and warps that share no barrier
+  overlap the one with the other.
 - B6, two launches: B6a, per live chunk in tiles of 64 rows, recomputes
   the decoder forward from the features and runs its hand-derived
   pullback, the four large matrices on the tensor cores in 3xTF32 (about
