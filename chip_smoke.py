@@ -19,10 +19,13 @@ grid, where few rays meet occupied cells, and one from inside it looking
 down, where all do; each view fused (B1, B2, B7) and unfused (B1, B2, B3
 and each tile's decoder in PyTorch), the unfused frame held against the
 fused one. Then it holds every kernel of that path against its plain
-PyTorch version on the card at the render's shapes (B3 and B7 with f32
-and bf16 tables), holds the card's render of a few hundred rays of each
-view in each configuration against the plain render on the CPU, and
-times the kernels and the render's stages with CUDA events.
+PyTorch version on the card at the render's shapes (B1 bit for bit; B3
+and B7 with f32 and bf16 tables, B3 also on a stream whose chunks span up
+to a whole block of windows, so that every pass of its staging runs),
+holds the card's render of a few hundred rays of each view in each
+configuration against the plain render on the CPU, and times the kernels
+and the render's stages with CUDA events (B1 also its kernel alone, with
+torch.profiler).
 
 Training (slice 2). bench.py's workload (the synthetic sphere scene, 16
 cameras at 256x256; 2^14 rays a step in 2x2 patches; 128 fg + 128 bg
@@ -36,9 +39,11 @@ stages from CUDA events, the idle share of a profiled step. Holds one
 full-recipe step fused against the same step unfused (losses and
 gradients), B5, B6, B3 and B4 against their plain versions on the middle
 256 chunks of a step's own stream (B4 with the unfused decoder's feature
-cotangent, under the step's BARF weights and with every level on), times
-them on the whole stream, and holds one full-recipe step of 512 rays on
-the card against the same step on the CPU (losses and gradients). B6 is
+cotangent, under the step's BARF weights and with every level on; B3 also
+bit for bit against the features B5 keeps), times them on the whole
+stream, holds B1 bit for bit at each of the step's shapes and times it
+there, and holds one full-recipe step of 512 rays on the card against the
+same step on the CPU (losses and gradients). B6 is
 two launches, B6a (the decoder backward, its large products on the
 tensor cores) and B4's kernel (the table scatter, summed per chunk in
 shared memory); the script also holds and times B6a alone, prints how
@@ -52,7 +57,8 @@ It prints the card's name and power limit (nvidia-smi), each phase's
 seconds, and, before the last line, one JSON line ``{"kernels": [...]}``
 with B1-B7: per kernel, its launches in the counted runs, max error
 against the plain version, times, and the bound (least time the card
-could take for the same work). The last line is ``{"ok": true,
+could take for the same work); B1's row also has its kernel's time alone
+and each training shape's numbers. The last line is ``{"ok": true,
 "device": {...}}``.
 
 Any failed build, launch or comparison ends the script with a non-zero
@@ -106,6 +112,61 @@ def timed(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, name: str, iters: int):
+    """Mean device time (ms) of the kernel whose name holds ``name``, one
+    launch a call, over ``iters`` calls of ``fn`` under torch.profiler
+    after one warm-up call: the kernel alone, without its wrapper's host
+    work. None if the profiler recorded no such kernel in three tries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):  # the profiler now and then records no kernel: try again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type.name == "CUDA" and name in ev.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+    return None
+
+
+def fmt_ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def wide_span_stream(NW: int, seed: int = 3):
+    """A sorted stream [NC, 8, CHUNK] and its meta over windows [0, NW)
+    whose chunks span 1, 2, 3, 5, 32 (a whole block) and 32 windows with a
+    sentinel tail, then one all-sentinel chunk: B3 stages a chunk's windows
+    in passes of a few, and real streams rarely take more than one pass. u
+    from a seed; each chunk's rows sorted by window, as ``sort_pack``
+    leaves them."""
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+
+    rng = np.random.default_rng(seed)
+    spans = [(40, 1), (70, 2), (101, 3), (130, 5), (160, 32), (192, 32), (None, 0)]
+    NC = len(spans)
+    pts = np.zeros((NC, 8, hw.CHUNK), np.float32)
+    pts[:, 0:3] = rng.random((NC, 3, hw.CHUNK), dtype=np.float32)
+    for c, (w0, n) in enumerate(spans):
+        if w0 is None:
+            pts[c, 3] = NW
+            continue
+        w = np.sort(w0 + rng.integers(0, n, hw.CHUNK))
+        w[:n] = w0 + np.arange(n)  # every window of the span is met
+        w = np.sort(w)
+        if c == NC - 2:
+            w[700:] = NW  # a sentinel tail
+        pts[c, 3] = w
+    if max(w0 + n for w0, n in spans if w0 is not None) > NW:
+        raise ValueError(f"the wide-span stream needs {NW} >= 224 windows")
+    pts_t = torch.from_numpy(pts).cuda()
+    return pts_t, hw._stream_meta(pts_t, NC, NW), [n for _, n in spans]
 
 
 # ---------------------------------------------------------------------------
@@ -580,12 +641,22 @@ def train_phase(render_b3: dict) -> list[dict]:
         rec_fn.launches = 0
         return rec_fn
 
-    saved = (ft.train_fwd, ft.train_bwd)
+    # B1's calls of the step by shape (N, S, M): the batch's fg samples and
+    # the warp loss's visibility re-render
+    b1_calls: dict[tuple, list] = {}
+
+    def b1_recorder(*a, **kw):
+        b1_calls.setdefault((a[0].shape[0], a[4], a[8]), []).append((a, kw))
+        return saved[2](*a, **kw)
+
+    b1_recorder.launches = 0
+    saved = (ft.train_fwd, ft.train_bwd, sp.sample_fused)
     ft.train_fwd, ft.train_bwd = recorder("B5", saved[0]), recorder("B6", saved[1])
+    sp.sample_fused = b1_recorder
     try:
         (_, _), _ = tile.compute_grads(state, data, tc, gen)
     finally:
-        ft.train_fwd, ft.train_bwd = saved
+        ft.train_fwd, ft.train_bwd, sp.sample_fused = saved
     pts, meta, table, res, pslab, NW = rec["B5"]
     pts, table, pslab, g = pts.detach(), table.detach(), pslab.detach(), rec["B6"][6]
     NC = pts.shape[0]
@@ -619,6 +690,17 @@ def train_phase(render_b3: dict) -> list[dict]:
               f"max |feats| err {err_b5[-1]:.3g} (tol 1e-5)")
         if not (err_b5[-2] <= 1e-4 and err_b5[-1] <= 1e-5 and torch.isfinite(cols_k).all()):
             fail(f"B5 ({label}) differs from its plain version")
+        if label == "step slab":
+            # B3 and B5 gather alike (decoder.cuh::corner_sum), so B3's
+            # features are, bit for bit, those B5 keeps for its backward
+            f3 = hw.lookup_fwd(*sub, table, res, NW)
+            f5 = feats_k.permute(0, 3, 1, 2).reshape(f3.shape)
+            n_diff = int((f3 != f5).sum())
+            print(f"B3 against B5's kept features, chunks {c0}-{c1}: {n_diff} of {f3.numel()} "
+                  f"entries differ (must be 0)")
+            if n_diff or not torch.equal(f3, f5):
+                fail("B3's features differ from those B5 keeps: they must be equal bit for bit")
+            del f3, f5
         dpts_k, dtab_k, dslab_k = ft.train_bwd(*sub, table, res, slab, feats_k, g_sub, NW)
         dpts_p, dtab_p, dslab_p = ft.train_bwd_plain(*sub, table, res, slab, feats_p, g_sub, NW)
         if dpts_k[:, 3::4].count_nonzero() or dpts_p[:, 3::4].count_nonzero():
@@ -693,6 +775,19 @@ def train_phase(render_b3: dict) -> list[dict]:
     del feats_full
     torch.cuda.empty_cache()
     b3, b4 = lookup_kernels(state, pts, meta, table, res, NW, g, (c0, c1), launches, render_b3)
+    # B1 at the step's shapes. The counted steps launched it per step once
+    # at the batch's shape in the rgb-only arm and as recorded above in the
+    # full recipe, in both configurations
+    b1_train = {}
+    for shape, calls in sorted(b1_calls.items()):
+        a, kw = calls[0]
+        batch = shape[1:] == (TRAIN_KW["num_sample"], TRAIN_KW["num_march"])
+        b1_train[shape] = dict(b1_shape(f"training {shape[0]} rays", a, kw, 20),
+                               launches=2 * TIMED_STEPS * (len(calls) + batch))
+    if sum(v["launches"] for v in b1_train.values()) != launches["B1"]:
+        fail(f"B1's training launches by shape {[v['launches'] for v in b1_train.values()]} "
+             f"do not add up to the {launches['B1']} counted")
+    del b1_calls
     del rec, pts, meta, g
     torch.cuda.empty_cache()
     print(f"phase train kernels: {time.perf_counter() - t_cmp:.1f} s")
@@ -771,7 +866,7 @@ def train_phase(render_b3: dict) -> list[dict]:
             if not worst <= tol:
                 fail(f"the card's {name} gradient differs from the CPU's ({recipe})")
     print(f"phase train card-vs-cpu: {time.perf_counter() - t_cpu:.1f} s")
-    return [b3, b4, b5, b6]
+    return [b3, b4, b5, b6], b1_train, launches["B1"]
 
 
 def print_ptxas(lib: str, log: str) -> None:
@@ -836,6 +931,41 @@ def occupancy_report(build) -> None:
     print(f"blocks an SM holds (dynamic shared memory a block): B5 {fwd} of 512 threads "
           f"({fwd_smem} B), B6a {bwd} of 512 ({bwd_smem} B), B7 {render} of 512 "
           f"({render_smem} B)")
+
+
+def b1_shape(label: str, a, kw, iters: int) -> dict:
+    """B1 on one call's captured arguments: z and totals against the plain
+    version (bit for bit: the kernel rounds every operation as the plain
+    version does, and S and M are powers of two, so PyTorch's division by
+    them through the reciprocal is exact), the wrapper's time, the kernel's
+    alone (torch.profiler) and the plain version's, and what the function
+    needs: its bytes, and its operations on this call's rays (the march
+    and scan on rays with a non-empty span, a merge of the S quantiles into
+    the M CDF values on rays that meet occupied cells)."""
+    from scanerf_tpu_torch.ops.kernels import sampler as sp
+
+    z_k, tot_k = sp.sample_fused(*a, **kw)
+    z_p, tot_p = sp.sample_plain(*a, **kw)
+    N, S, M = a[0].shape[0], a[4], a[8]
+    valid = int((tot_p > 0).sum())
+    n_z, n_t = int((z_k != z_p).sum()), int((tot_k != tot_p).sum())
+    err = float((z_k - z_p).abs().max())
+    print(f"B1 {label}: {N} rays S={S} M={M}: {valid} valid; entries that differ from the "
+          f"plain version: z {n_z} of {z_p.numel()}, totals {n_t} of {N} (max |dz| {err:.3g}; "
+          f"must be 0)")
+    if n_z or n_t or not torch.isfinite(z_k).all():
+        fail(f"B1 ({label}) differs from its plain version: it must be exact")
+    if valid < N // 8:
+        fail(f"B1 comparison ({label}) has only {valid} valid rays")
+    n_span = int((a[3] > a[2]).sum())
+    out = dict(err=err, ms=timed(lambda: sp.sample_fused(*a, **kw), iters),
+               kernel_ms=kernel_ms(lambda: sp.sample_fused(*a, **kw), "sample_kernel", iters),
+               plain_ms=timed(lambda: sp.sample_plain(*a, **kw), 3),
+               bytes=N * 8 * 4 + a[5].numel() + 2 * 3 * 4 + N * (S + 1) * 4,
+               ops=n_span * (M * 24 + M) + valid * (M + S))
+    print(f"B1 {label}: wrapper {out['ms']:.4f} ms, kernel alone {fmt_ms(out['kernel_ms'])}, "
+          f"plain {out['plain_ms']:.3f} ms")
+    return out
 
 
 def main() -> None:
@@ -991,35 +1121,15 @@ def main() -> None:
     torch.cuda.synchronize()
     rows = []
 
-    # B1: the CDF sampler
+    # B1: the CDF sampler, exact against its plain version
     a, kw = cap.args["B1"]
-    z_k, tot_k = sp.sample_fused(*a, **kw)
-    z_p, tot_p = sp.sample_plain(*a, **kw)
-    v_k, v_p = tot_k > 0, tot_p > 0
-    if not torch.equal(v_k, v_p):
-        fail("B1 valid masks differ from the plain version")
-    if not torch.allclose(tot_k, tot_p, rtol=1e-5, atol=1e-7):
-        fail("B1 totals differ from the plain version beyond 1e-5 relative")
-    if int(v_p.sum()) < a[0].shape[0] // 8:
-        fail(f"B1 comparison chunk has only {int(v_p.sum())} valid rays")
-    err_b1 = float((z_k - z_p)[v_p].abs().max())
-    if err_b1 > 1e-4:
-        fail(f"B1 z differs from the plain version by {err_b1} > 1e-4")
-    N, S, M = a[0].shape[0], a[4], a[8]
-    b1_bytes = N * 8 * 4 + a[5].numel() + (M + 1) * 4 + N * (S + 1) * 4
-    # what this run's rays need: the march and the scan on rays with a
-    # non-empty span, and on rays that met occupied cells the inversion as
-    # a merge of the S sorted quantiles into the M sorted CDF values
-    n_span = int((a[3] > a[2]).sum())
-    b1_ops = n_span * (M * 24 + M) + int(v_p.sum()) * (M + S)
+    b1 = b1_shape("render chunk", a, kw, 20)
     rows.append(dict(
         name="cdf_sampler", route="cuda", source="scanerf_tpu_torch/csrc/sampler.cu",
         replaces="scanerf_tpu/ops/pallas/sampler.py:91",
-        launches=launches[True]["B1"] + launches[False]["B1"], max_abs_err=err_b1,
-        ms=timed(lambda: sp.sample_fused(*a, **kw), 20),
-        plain_ms=timed(lambda: sp.sample_plain(*a, **kw), 3),
-        bytes=b1_bytes, ops=b1_ops, library_ms=None))
-    print(f"B1: {N} rays S={S} M={M}: valid {int(v_p.sum())}, max |dz| {err_b1:.3g} (tol 1e-4)")
+        launches=launches[True]["B1"] + launches[False]["B1"], max_abs_err=b1["err"],
+        ms=b1["ms"], kernel_ms=b1["kernel_ms"], plain_ms=b1["plain_ms"],
+        bytes=b1["bytes"], ops=b1["ops"], library_ms=None))
 
     # B2: the stream pack
     a, kw = cap.args["B2"]
@@ -1093,6 +1203,20 @@ def main() -> None:
               f"largest entry {scale:.3g} (tol 1e-5 of it); {ms:.3f} ms")
         if not (torch.isfinite(f_k).all() and e <= 1e-5 * scale):
             fail(f"B3 ({label} tables) differs from its plain version on the render stream")
+    # and on a stream whose chunks span up to a whole block of windows, so
+    # that every pass of B3's staging runs (real streams rarely go past one)
+    w_pts, w_meta, w_spans = wide_span_stream(NW)
+    for label, table in (("f32", feats), ("bf16", scene16.features_flat)):
+        f_k = hw.lookup_fwd(w_pts, w_meta, table, res, NW)
+        f_p = hw.lookup_fwd_plain(w_pts, table, res, NW)
+        e, scale = float((f_k - f_p).abs().max()), float(f_p.abs().max())
+        render_b3["err"] = max(render_b3["err"], e)
+        zero = bool((f_k[-2 * hw.CHUNK + 700:] == 0).all())
+        print(f"B3 wide-span stream ({label} tables; chunks spanning {w_spans} windows): max "
+              f"err {e:.3g}, largest entry {scale:.3g} (tol 1e-5 of it); sentinel rows zero: "
+              f"{zero}")
+        if not (torch.isfinite(f_k).all() and e <= 1e-5 * scale and zero):
+            fail(f"B3 ({label} tables) differs from its plain version on the wide-span stream")
 
     # --- the card's render against the plain render on the CPU, per view
     sel = torch.linspace(0, n_rays - 1, N_PARITY_RAYS, device="cuda").long()
@@ -1114,14 +1238,33 @@ def main() -> None:
 
     print(f"phase render: {time.perf_counter() - t_start:.1f} s")
     t1 = time.perf_counter()
-    rows += train_phase(render_b3)
+    train_rows, b1_train, b1_train_launches = train_phase(render_b3)
+    rows += train_rows
     print(f"phase train: {time.perf_counter() - t1:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
-    for r in rows:
+    def bound(r):
         t_bytes = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
         t_ops = r.pop("ops_ms") if "ops_ms" in r else r.pop("ops") / F32_OPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        return r
+
+    for r in rows:
+        bound(r)
+    # B1's row: the render chunk's numbers, all its launches, and each
+    # training shape's launches and times beside them
+    b1 = rows[0]
+    b1["training"] = [dict(rays=n, S=S, M=M, **bound(dict(
+        launches=v["launches"], max_abs_err=v["err"], ms=v["ms"], kernel_ms=v["kernel_ms"],
+        plain_ms=v["plain_ms"], bytes=v["bytes"], ops=v["ops"])))
+        for (n, S, M), v in b1_train.items()]
+    loss = b1["launches"] * (b1["ms"] - b1["bound_ms"]) + sum(
+        t["launches"] * (t["ms"] - t["bound_ms"]) for t in b1["training"])
+    b1["launches"] += b1_train_launches
+    print(f"B1 over all its {b1['launches']} launches: launches x (time - bound) {loss:.3f} ms "
+          f"(render chunk {b1['ms']:.4f} ms, bound {b1['bound_ms']:.5f}; "
+          + "; ".join(f"{t['rays']} rays {t['launches']} launches {t['ms']:.4f} ms, bound "
+                      f"{t['bound_ms']:.5f}" for t in b1["training"]) + ")")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,26 +8,44 @@
 // lookup_bwd_plain, up to the order of f32 sums.
 //
 // B3, per stream row and level: the 8 corner slots of the folded prime-XOR
-// hash inside the row's 512-entry window, trilinear weights, one 8-byte (f32)
-// or 4-byte (bf16, widened to f32) read of each corner's feature pair
-// (decoder.cuh::encode_level, the gather B5 and B7 run) -> feats [Np, L*2]
-// f32 in stream order. Rows in the sentinel window (>= nw) get zeros; chunks
-// with no real row write zeros and stop. Design: one block of 256 threads per
-// 1024-row chunk; a thread takes one (row, level) pair at a time with the
-// level fastest, so 16 neighbouring threads write one row's 32 features as
-// 128 contiguous bytes and a warp's stores coalesce. Bound on the H100: the
-// bytes, not the ~70 operations of a pair: pts rows 0-3 read once, the
-// features written once (128 bytes a row), and the table blocks the chunks
-// visit (2 MB of f32 per block, which L2 holds while its chunks run).
+// hash inside the row's 512-entry window, trilinear weights, and the sum of
+// the corners' feature pairs in decoder.cuh::encode_level's order (the
+// gather B5 and B7 run, so the features are bit for bit theirs) -> feats [Np, L*2]
+// f32 in stream order. Rows in the sentinel window (>= nw) get zeros;
+// chunks with no real row write zeros and stop. f32 or bf16 tables (bf16
+// staged as bf16 and widened on read).
+// What bounds it on the H100: the bytes (pts rows 0-3 read once, 128 bytes
+// of features written a row, the table blocks the chunks visit) set a floor
+// of ~0.19 ms on a training step's stream; but the work is 8 scattered
+// 8-byte reads a (row, level) pair, 537 M a step, and read from L2 one
+// request each (this kernel's first design) they set its time: 1.27 ms on
+// an H100 80GB HBM3 at 700 W, 4.9x the floor.
 //
+// Design: a block takes 512 rows of a chunk, one a thread, and reads each
+// row's u and window id once. All real rows of those rows' subtiles lie in
+// the window range [wlo, whi] that meta gives them (as B4 reads it), most
+// chunks span 1-2 windows, and for one level the span's windows are
+// contiguous in the flat table. So the block copies the span, level by
+// level, into shared memory with 16-byte cp.async copies, in passes of
+// FWD_WCAP windows (a wider span takes more passes, each with the rows
+// whose window falls in it), double-buffered with one barrier a stage: the
+// next (level, pass)'s copy is in flight while the rows gather this one's
+// corners from shared memory. A bank serves a read of a random slot in a
+// few cycles, an L2 request takes hundreds. Each row's pairs go into a
+// [512, 2L] tile in shared memory (rows 2L + 1 floats apart, so a warp's
+// rows fall in distinct banks), and the block writes the tile out whole
+// rows at a time: writing each level's 8 bytes of a row straight to device
+// memory, 128 bytes apart across the lanes, cost more than all the rest
+// (measured). What is left is arithmetic, the hash and the weights of 8
+// corners a pair, and the copies; the hash folds each axis term once
+// (Folded, below).
+
 // B4, the table scatter and dL/du, is also the second half of B6 (whose
 // wrapper launches it after the decoder backward of fused_train.cu). The JAX
 // kernel kept a window block's gradient in VMEM across the block's chunks;
 // here each chunk sums its own, in shared memory. One block of 256 threads a
 // live chunk, 4 rows a thread. From meta the block reads the chunk's window
-// range [wlo, whi]: every real row lies in it (a block's rows start on a
-// chunk, and each subtile's (wmin, span) covers its real rows), and most
-// chunks span one or two windows. Level by level, in passes of WCAP windows
+// range [wlo, whi], as B3 does. Level by level, in passes of WCAP windows
 // (a chunk spanning more takes more passes, each with only the rows whose
 // window falls in it): each warp zeroes its own slab of WCAP x 512 f32 pairs;
 // for each row and corner the lanes of the warp that hit the same entry sum
@@ -63,36 +81,184 @@ namespace {
 
 using namespace scanerf;
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // backward: threads a block
 constexpr int ROWS = CHUNK / THREADS;  // backward: rows a thread
 constexpr int WARPS = THREADS / 32;
 constexpr int WCAP = 2;  // backward: windows a pass holds in each warp's slab (8 KB)
+constexpr int FWD_THREADS = 512;  // forward: a block takes 512 rows of a chunk, one a thread
+constexpr int FWD_WCAP = 4;  // forward: windows a staged pass holds (16 KB of f32)
+constexpr int FWD_NBUF = 2;  // forward: stage buffers, FWD_NBUF - 1 stages in flight
+constexpr int TS = 2 * MAXL + 1;  // forward: a row's floats in the block's feature tile (odd:
+                                  // the lanes' rows fall in distinct banks)
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// B3's corners of a row on one level. The slot of a corner is
+// decoder.cuh::corner_slot's integer: the fold h ^ (h >> 9) ^ (h >> 18) and
+// the mask distribute over the XOR of the three axis terms, so each term is
+// folded once (f*0 for the lower corner, f*1 for the upper) and a corner's
+// slot is the XOR of its three. o* are the fractional offsets, computed as
+// corner_setup computes them from the level's resolution - 1 (s*).
+struct Folded {
+  uint32_t fx0, fx1, fy0, fy1, fz0, fz1;
+  float ox, oy, oz;
+};
+
+__device__ __forceinline__ uint32_t fold(uint32_t h) {
+  return (h ^ (h >> 9) ^ (h >> 18)) & (WIN - 1);
+}
+
+__device__ __forceinline__ Folded folded_setup(float sx, float sy, float sz, float ux, float uy,
+                                               float uz) {
+  const float vx = ux * sx, vy = uy * sy, vz = uz * sz;
+  const float bx = floorf(vx), by = floorf(vy), bz = floorf(vz);
+  Folded k;
+  k.ox = vx - bx;
+  k.oy = vy - by;
+  k.oz = vz - bz;
+  const uint32_t hx = (uint32_t)(int)bx, hy = (uint32_t)(int)by * 2654435761u,
+                 hz = (uint32_t)(int)bz * 805459861u;
+  k.fx0 = fold(hx);
+  k.fx1 = fold(hx + 1u);
+  k.fy0 = fold(hy);
+  k.fy1 = fold(hy + 2654435761u);
+  k.fz0 = fold(hz);
+  k.fz1 = fold(hz + 805459861u);
+  return k;
+}
+
+// The pair at slot h of a window staged in shared memory, widened to f32.
+__device__ __forceinline__ float2 staged_pair(const float* tw, int h) {
+  return reinterpret_cast<const float2*>(tw)[h];
+}
+__device__ __forceinline__ float2 staged_pair(const __nv_bfloat16* tw, int h) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(tw)[h]);
+}
+
+// The feature pair of a row from its window staged at tw: encode_level's
+// trilinear sum, corner by corner with the same weights and fmaf order, so
+// the features are bit for bit those of B5 and B7.
+template <typename TT>
+__device__ __forceinline__ float2 staged_level(const TT* tw, const Folded& k) {
+  float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const bool cx = (c >> 2) & 1, cy = (c >> 1) & 1, cz = c & 1;
+    const float wt = (cx ? k.ox : 1.0f - k.ox) * (cy ? k.oy : 1.0f - k.oy) *
+                     (cz ? k.oz : 1.0f - k.oz);
+    const float2 v = staged_pair(tw, (int)((cx ? k.fx1 : k.fx0) ^ (cy ? k.fy1 : k.fy0) ^
+                                           (cz ? k.fz1 : k.fz0)));
+    a0 = fmaf(wt, v.x, a0);
+    a1 = fmaf(wt, v.y, a1);
+  }
+  return make_float2(a0, a1);
+}
+
+// The window range [wlo, whi] of the real rows of nsub consecutive subtiles
+// whose meta starts at m (whi < wlo: none). Every real row lies in it: a
+// block's rows start on a chunk, and each subtile's (wmin, span) covers its
+// real rows.
+__device__ __forceinline__ void subtile_windows(const int* m, int nsub, int& wlo, int& whi) {
+  wlo = 1 << 30;
+  whi = -1;
+  for (int s = 0; s < nsub; ++s, m += 4) {
+    if (m[2] > 0) {
+      wlo = min(wlo, m[1]);
+      whi = max(whi, m[1] + m[2] - 1);
+    }
+  }
+}
 
 template <typename TT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FWD_THREADS, 2)
 lookup_fwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
                   const TT* __restrict__ table, long long row_stride, int L,
                   const int* __restrict__ res_g, int nw, float* __restrict__ out) {
-  __shared__ int res[3 * MAXL];
-  const int c = blockIdx.x;
-  float2* o2 = reinterpret_cast<float2*>(out) + (size_t)c * CHUNK * L;
-  if (chunk_work(meta, c) == 0) {
-    for (int p = threadIdx.x; p < CHUNK * L; p += THREADS) o2[p] = make_float2(0.f, 0.f);
+  constexpr int BUF = FWD_WCAP * WIN * 2;  // elements of TT in one stage buffer
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  TT* stage = reinterpret_cast<TT*>(fwd_smem);                    // [FWD_NBUF][BUF]
+  float* tile = reinterpret_cast<float*>(stage + FWD_NBUF * BUF);  // [FWD_THREADS][TS]
+  __shared__ float scale[3 * MAXL];  // each level's resolution - 1
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long row0 = (long long)blockIdx.x * FWD_THREADS;  // the block's first row
+  const int c = (int)(row0 / CHUNK), t = (int)(row0 % CHUNK) + tid;  // chunk, this row in it
+  float* ob = out + row0 * 2 * L;
+  int wlo, whi;
+  subtile_windows(meta + (row0 / 128) * 4, FWD_THREADS / 128, wlo, whi);
+  if (whi < wlo) {
+    for (int p = tid; p < FWD_THREADS * L / 2; p += FWD_THREADS)
+      reinterpret_cast<float4*>(ob)[p] = make_float4(0.f, 0.f, 0.f, 0.f);
     return;
   }
-  for (int i = threadIdx.x; i < 3 * L; i += THREADS) res[i] = res_g[i];
-  __syncthreads();
+  const int npass = (whi - wlo + FWD_WCAP) / FWD_WCAP;
+  // stage (l, p): level l's windows [wlo + p * FWD_WCAP, ...) of the span, the
+  // pass fastest; issue(l, p) copies them into buffer b with 16-byte copies
+  // over the block, one commit group a stage (empty past the last level)
+  auto issue = [&](int l, int p, int b) {
+    if (l < L) {
+      const int wb = wlo + p * FWD_WCAP;
+      const int n16 = min(FWD_WCAP, whi - wb + 1) * WIN * 2 * (int)sizeof(TT) / 16;
+      const int4* src = reinterpret_cast<const int4*>(table + (size_t)l * row_stride +
+                                                      (size_t)wb * WIN * 2);
+      int4* dst = reinterpret_cast<int4*>(stage + b * BUF);
+      for (int i = tid; i < n16; i += FWD_THREADS) cp_async16(dst + i, src + i);
+    }
+    cp_async_commit();
+  };
+  // the stage FWD_NBUF - 1 ahead of the current one, whose copy goes next
+  int nl = 0, np = 0, nb = 0;
+  auto advance = [&](int& l, int& p) {
+    if (++p == npass) {
+      p = 0;
+      ++l;
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < FWD_NBUF - 1; ++i) {
+    issue(nl, np, nb);
+    advance(nl, np);
+    ++nb;
+  }
+  for (int i = tid; i < 3 * L; i += FWD_THREADS) scale[i] = (float)res_g[i] - 1.0f;
 
   const float* prow = pts + (size_t)c * 8 * CHUNK;
-  for (int p = threadIdx.x; p < CHUNK * L; p += THREADS) {
-    const int t = p / L, l = p - t * L;
-    const int w = (int)prow[3 * CHUNK + t];
-    float2 f = make_float2(0.f, 0.f);
-    if (w < nw)
-      f = encode_level<TT>(table + (size_t)l * row_stride, res, l, w, prow[t],
-                           prow[CHUNK + t], prow[2 * CHUNK + t]);
-    o2[p] = f;
+  const float ux = prow[t], uy = prow[CHUNK + t], uz = prow[2 * CHUNK + t];
+  const int w = (int)prow[3 * CHUNK + t];
+  float2 f = make_float2(0.f, 0.f);  // the row's pair of the level being gathered
+  for (int l = 0, p = 0, b = 0; l < L;) {
+    cp_async_wait<FWD_NBUF - 2>();  // this thread's copies of stage (l, p)
+    // every thread's copies of stage (l, p) (and scale) visible; every
+    // thread done with the stage before, whose buffer the next issue refills
+    __syncthreads();
+    issue(nl, np, nb);
+    advance(nl, np);
+    nb = nb + 1 == FWD_NBUF ? 0 : nb + 1;
+    // the row, if this pass holds its window (a sentinel row, > whi, none)
+    const int r = w - (wlo + p * FWD_WCAP);
+    if (r >= 0 && r < FWD_WCAP && w <= whi)
+      f = staged_level(stage + b * BUF + r * WIN * 2,
+                       folded_setup(scale[3 * l], scale[3 * l + 1], scale[3 * l + 2], ux, uy, uz));
+    if (p == npass - 1) {
+      tile[tid * TS + 2 * l] = f.x;
+      tile[tid * TS + 2 * l + 1] = f.y;
+      f = make_float2(0.f, 0.f);
+    }
+    advance(l, p);
+    b = b + 1 == FWD_NBUF ? 0 : b + 1;
   }
+  __syncthreads();
+  // the rows' features out in stream order: 2L contiguous floats a row,
+  // so a warp writes whole rows
+  for (int r = tid >> 5; r < FWD_THREADS; r += FWD_THREADS / 32)
+    if (lane < 2 * L) ob[(size_t)r * 2 * L + lane] = tile[r * TS + lane];
 }
 
 // Sum of x over this lane's peers (the lanes of the warp with its key, from
@@ -129,15 +295,8 @@ lookup_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
   float* drow = dpts + (size_t)c * 8 * CHUNK;
   if (own_rows > 3)
     for (int t = tid; t < 5 * CHUNK; t += THREADS) drow[3 * CHUNK + t] = 0.0f;
-  int wlo = 1 << 30, whi = -1;
-#pragma unroll
-  for (int s = 0; s < SUBT; ++s) {
-    const int* m = meta + (c * SUBT + s) * 4;
-    if (m[2] > 0) {
-      wlo = min(wlo, m[1]);
-      whi = max(whi, m[1] + m[2] - 1);
-    }
-  }
+  int wlo, whi;
+  subtile_windows(meta + c * SUBT * 4, SUBT, wlo, whi);
   if (whi < wlo) {
     for (int t = tid; t < 3 * CHUNK; t += THREADS) drow[t] = 0.0f;
     return;
@@ -249,21 +408,37 @@ lookup_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
 
 }  // namespace
 
+template <typename TT>
+cudaError_t launch_lookup_fwd(const float* pts, const int* meta, const TT* table,
+                              long long row_stride, int L, const int* res, int nw, int NC,
+                              float* out, cudaStream_t s) {
+  // the stage buffers and the feature tile
+  const int smem =
+      (int)(FWD_NBUF * FWD_WCAP * WIN * 2 * sizeof(TT) + FWD_THREADS * TS * sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(lookup_fwd_kernel<TT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(lookup_fwd_kernel<TT>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  lookup_fwd_kernel<TT><<<NC * (CHUNK / FWD_THREADS), FWD_THREADS, smem, s>>>(
+      pts, meta, table, row_stride, L, res, nw, out);
+  return cudaGetLastError();
+}
+
 extern "C" int scanerf_lookup_fwd(const float* pts, const int* meta, const void* table,
                                   int table_bf16, long long row_stride, int L,
                                   const int* res, int nw, int NC, float* out,
                                   void* stream) {
-  if (L > MAXL || L < 1) return (int)cudaErrorInvalidValue;
+  if (L > MAXL || L < 1 || ((uintptr_t)table & 15) || (row_stride & 7))
+    return (int)cudaErrorInvalidValue;
+  if (NC <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (NC > 0) {
-    if (table_bf16)
-      lookup_fwd_kernel<__nv_bfloat16><<<NC, THREADS, 0, s>>>(
-          pts, meta, static_cast<const __nv_bfloat16*>(table), row_stride, L, res, nw, out);
-    else
-      lookup_fwd_kernel<float><<<NC, THREADS, 0, s>>>(
-          pts, meta, static_cast<const float*>(table), row_stride, L, res, nw, out);
-  }
-  return (int)cudaGetLastError();
+  return (int)(table_bf16 ? launch_lookup_fwd(pts, meta, static_cast<const __nv_bfloat16*>(table),
+                                              row_stride, L, res, nw, NC, out, s)
+                          : launch_lookup_fwd(pts, meta, static_cast<const float*>(table),
+                                              row_stride, L, res, nw, NC, out, s));
 }
 
 // The table scatter and dL/du (B4, and B6's second launch): g is read at

@@ -25,7 +25,9 @@ kernels ``hash_encode.py::_fwd_kernel`` (launched by ``_run_fwd`` at
 hash_encode.py:1231) and ``_bwd_kernel`` (``_run_bwd``, :1268), in
 ``csrc/hash_encode.cu``. ``hash_lookup_sorted`` is a
 ``torch.autograd.Function`` whose forward is B3 (the stream's features
-[Np, L*2] f32, zero on sentinel rows; f32 or bf16 tables) and whose
+[Np, L*2] f32, zero on sentinel rows; f32 or bf16 tables; each chunk's
+window span copied level by level into shared memory, where its rows
+gather their corners) and whose
 backward is B4 (the table gradient summed per chunk and level in shared
 memory, then added to a zeroed dense buffer, so unvisited blocks stay
 exactly zero, and the analytic dL/du in dpts rows 0-2; f32 tables only).
@@ -438,12 +440,16 @@ def lookup_fwd(pts, meta, features, resolutions, NW: int) -> torch.Tensor:
     """B3 wrapper -> feats [Np, L*2] f32 in stream order. CPU tensors take
     ``lookup_fwd_plain``; CUDA tensors launch the kernel. ``features`` is
     the flat [L, NW*512*2] f32 or bf16 table (stack); ``NW`` its window
-    count, the sentinel window id."""
+    count, the sentinel window id. ``meta`` must be the stream's own (the
+    kernel stages only the windows it names)."""
     if pts.device.type == "cpu":
         return lookup_fwd_plain(pts, features, resolutions, NW)
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
     _check_lookup(pts, meta, features, resolutions, NW)
+    if features.data_ptr() % 16:
+        raise ValueError("features must start on a 16-byte boundary: B3 copies its "
+                         "windows in 16-byte pieces")
     NC, L = pts.shape[0], resolutions.shape[0]
     out = torch.empty((NC * CHUNK, 2 * L), dtype=torch.float32, device=pts.device)
     f = _lookup_fn("scanerf_lookup_fwd", [_P, _P, _P, _I, _LL, _I, _P, _I, _I, _P, _P])

@@ -4,11 +4,16 @@ Replaces the Pallas kernel ``scanerf_tpu/ops/pallas/sampler.py::_make_kernel``
 (launched by ``sample_fused``, sampler.py:240). One warp per ray
 (``csrc/sampler.cu``): the lanes march the M segment midpoints and test
 the occupancy grid (the bool tensor's bytes, read through the read-only
-cache), the ray's occupied lengths are scanned in shared memory, and
-each lane inverts the CDF at its share of the S quantiles with no gather
-from device memory. Per ray the kernel reads 32 bytes and writes
-4(S+1); the grid stays in L2. What bounds it on the H100 is the arithmetic of the march and of
-the S x M comparisons of the inversion, not device memory.
+cache), the ray's occupied lengths are scanned in shared memory, and the
+CDF is inverted at the S quantiles in M + S work: each cum value's first
+quantile J(m) by a binary search, a histogram of J in shared memory, and
+its prefix sum, which is ``#{m : cum[m] <= s_j}`` exactly, whatever the
+order of the cum values (``csrc/sampler.cu`` gives the argument). Per ray
+the kernel reads 32 bytes and writes 4(S+1); the grid stays in L2. What
+bounds it on the H100 is the march's arithmetic, not device memory. The
+wrapper allocates the two outputs and nothing else: the kernel computes
+``linspace01``'s fractions itself and reads the grid box through the
+caller's tensors.
 
 The scan adds in the order XLA's CPU ``cumsum`` does (blocks of 16, then
 the block totals, recursively) and every multiply-add is rounded as two
@@ -83,14 +88,16 @@ def sample_plain(rays_o, rays_d, t_near, t_far, num_sample, grid,
 def _fn():
     f = _build.load("sampler").scanerf_sample
     f.restype = ctypes.c_int
-    f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+    f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p] * 3
     return f
 
 
 def sample_fused(rays_o, rays_d, t_near, t_far, num_sample, grid,
                  grid_corner, grid_size, num_march):
     """z_vals [N, S] f32 and total [N] f32. CPU tensors take
-    ``sample_plain``; CUDA tensors launch the kernel."""
+    ``sample_plain``; CUDA tensors launch the kernel (``grid_corner`` and
+    ``grid_size`` then contiguous f32 (3,) tensors on the rays' device)."""
     if rays_o.device.type == "cpu":
         return sample_plain(rays_o, rays_d, t_near, t_far, num_sample, grid,
                             grid_corner, grid_size, num_march)
@@ -108,18 +115,21 @@ def sample_fused(rays_o, rays_d, t_near, t_far, num_sample, grid,
     if grid.dtype != torch.bool or grid.ndim != 3 or grid.device != rays_o.device \
             or not grid.is_contiguous():
         raise ValueError("grid must be a contiguous 3-D bool tensor on the rays' device")
+    for name, t in (("grid_corner", grid_corner), ("grid_size", grid_size)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (3,) or not t.is_contiguous() \
+                or t.device != rays_o.device:
+            raise ValueError(f"{name}: want contiguous f32 (3,) on {rays_o.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
     t_near, t_far = t_near.contiguous(), t_far.contiguous()
-    frac = linspace01(num_march + 1, rays_o.device)
-    box = torch.cat([grid_corner.reshape(3), grid_size.reshape(3)]).to(
-        device=rays_o.device, dtype=torch.float32)
     z = torch.empty((N, num_sample), dtype=torch.float32, device=rays_o.device)
     total = torch.empty((N,), dtype=torch.float32, device=rays_o.device)
     if N == 0:
         return z, total
     P = _build.ptr
-    err = _fn()(P(rays_o), P(rays_d), P(t_near), P(t_far), P(grid), P(frac),
-                P(box), *grid.shape, N, num_sample, num_march,
+    # f32(1 / M), as linspace01's step: the kernel's frac[m] = m * inv_m
+    err = _fn()(P(rays_o), P(rays_d), P(t_near), P(t_far), P(grid), P(grid_corner),
+                P(grid_size), 1.0 / num_march, *grid.shape, N, num_sample, num_march,
                 P(z), P(total), _build.stream_ptr(rays_o))
     _build.check(err, "scanerf_sample")
     sample_fused.launches += 1
