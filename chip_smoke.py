@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Two phases, each driven through the port's entry points in both decoder
-configurations, fused (the default) and unfused (slice 3:
-``fuse_decoder=False`` / ``fused_decoder=False``), with the kernels'
-launch counts set to 0 just before each counted run and read just after.
+Three phases, driven through the port's entry points, with the kernels'
+launch counts set to 0 just before each counted run and read just after:
+render and training, each in both decoder configurations, fused (the
+default) and unfused (slice 3: ``fuse_decoder=False`` /
+``fused_decoder=False``); then one tile from a scene directory to an
+export.
 
 Render (slice 1). Builds the port's CUDA kernels from csrc/, writes a
 4-tile scene in the reference export layout (16 levels x 2 features, H =
@@ -52,6 +54,27 @@ step's B6 and B4 add to the table gradient with global atomics, the
 blocks an SM holds of B5, B6a and B7, and, where the toolkit has
 cuobjdump, the tensor-core (HMMA) instructions of B5, B6a and B7, whose
 large products run on the tensor cores in 3xTF32.
+
+Tile (slice 7). One tile from a scene directory to an export, at
+bench.py's width, in a temporary directory: ``write_scene_dir`` (16
+cameras at 256x256, one tile, mono priors; tile_info rewritten at
+resolution (32, 2048)), a config from ``default_config().deep_update``
+(H = 2^21, a 64^3 grid, 2^14 rays, 128 + 128 samples, M 512, the
+reference's full loss recipe, pose noise 0.02) and
+``TrainConfig.from_cfg``, ``load_scene`` / ``read_tile_info`` /
+``read_training_views``, ``create_field(cubic_grid=True)`` and 400 fused
+steps of ``train_n_steps`` in blocks of 100 (B1, B2, B5, B6). At step 0
+and after each block: the eval PSNR and SSIM of ``tile.render_image`` of
+the blocks/test.txt view (also a training view), the pose error of
+``evaluate_camera_alignment`` and the block's training rays/s. At step
+200 it saves a checkpoint, loads it into a fresh state, holds every array
+of the two equal, takes one step from each on the same batch and holds
+their losses and updated params together, and goes on from the restored
+state. After step 400 the PSNR must have risen 3 dB; ``export_tile``
+(windowed), ``load_scene`` and the renderer's ``render_image`` (B7) give
+the export's render of the same view, held to the training-side render
+(1 dB PSNR, 0.1 mean |difference|). It prints the phase's launches of
+B1, B2, B5, B6 and B7 on a line of its own.
 
 It prints the card's name and power limit (nvidia-smi), each phase's
 seconds, and, before the last line, one JSON line ``{"kernels": [...]}``
@@ -869,6 +892,245 @@ def train_phase(render_b3: dict) -> list[dict]:
     return [b3, b4, b5, b6], b1_train, launches["B1"]
 
 
+# ---------------------------------------------------------------------------
+# tile: one tile from a scene directory to an export (slice 7)
+# ---------------------------------------------------------------------------
+
+TILE_STEPS, TILE_BLOCK, TILE_RESUME_AT = 400, 100, 200
+# bench.py's width: 16 cameras at 256x256, 2^14 rays a step, 128 + 128
+# samples, a 512-step march, H = 2^21
+TILE_CAMS, TILE_HW, TILE_BATCH_LOG2, TILE_LOG2_H = 16, 256, 14, 21
+TILE_SAMPLES, TILE_MARCH = 128, 512
+# Limits of the tile phase:
+# - training must show in the eval render: its PSNR after the last step at
+#   least 3 dB above step 0's (a random field renders a near-flat grey, so
+#   any fit of the sky, the ground and the sphere clears it; a broken
+#   gradient or update does not);
+TILE_MIN_PSNR_RISE = 3.0
+# - the state restored from a checkpoint equals the saved one exactly
+#   (save and load copy numbers, nothing is computed between);
+# - one step from the saved state and one from the restored state, on the
+#   same batch, agree within FVU_LOSS_RTOL's 1e-5 relative in every loss
+#   and, in each group's params after the update, within 1e-5 relative
+#   L2: the forward is the same computation on the same numbers, but B4's
+#   atomics (inside B6) add the table gradient in an order that changes
+#   from run to run, so the update differs in its last bits. A loss that
+#   underflows to ~0 is held to 1e-11 absolute;
+TILE_RESUME_RTOL, TILE_RESUME_ATOL = 1e-5, 1e-11
+# - the export's render (B7; fp16 tables, the renderer's own union-grid
+#   sampling, every BARF level on) within 1 dB PSNR of the training-side
+#   render (B5) of the same view, and the two images within 0.1 mean
+#   |difference|, the limit of the JAX package's own
+#   tests/test_checkpoint_render.py::test_export_matches_field_render.
+TILE_EXPORT_DB, TILE_EXPORT_MAD = 1.0, 0.1
+
+
+def tile_phase() -> dict:
+    """One tile trained from a scene directory through the port's entry
+    points: ``write_scene_dir`` (16 cameras at 256x256, one tile, mono
+    priors), a config from ``default_config`` and ``TrainConfig.from_cfg``,
+    ``load_scene`` with seeded pose noise, ``create_field(cubic_grid=True)``
+    at H = 2^21, ``train_n_steps`` for 400 full-recipe fused steps in
+    blocks of 100 with the eval PSNR / SSIM, the pose error and the rays/s
+    of each block; a checkpoint at step 200 saved, loaded into a fresh
+    state and held against the saved one, one step from each; then
+    ``export_tile`` and the export rendered by the renderer. Returns the
+    phase's launches of each kernel."""
+    from scanerf_tpu_torch.config import default_config
+    from scanerf_tpu_torch import convert
+    from scanerf_tpu_torch.data import io as dio
+    from scanerf_tpu_torch.data.synthetic import write_scene_dir
+    from scanerf_tpu_torch.models import field
+    from scanerf_tpu_torch.ops.kernels import fused_render as fr
+    from scanerf_tpu_torch.ops.kernels import fused_train as ft
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+    from scanerf_tpu_torch.ops.kernels import sampler as sp
+    from scanerf_tpu_torch.render import renderer
+    from scanerf_tpu_torch.train import cameras, checkpoint, tile
+    from scanerf_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    counters = {"B1": sp.sample_fused, "B2": hw.pack, "B5": ft.train_fwd,
+                "B6": ft.train_bwd, "B7": fr.hash_decode_fused}
+    for c in counters.values():
+        c.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        # --- scene, config, tile
+        t0 = time.perf_counter()
+        write_scene_dir(root, n_cameras=TILE_CAMS, H=TILE_HW, W=TILE_HW, n_tiles=1)
+        infos = dio.read_tile_info(os.path.join(root, "tiles", "tile_info.txt"))
+        infos[0].resolution = (32, 2048)  # bench.py's; write_scene_dir writes (16, 256)
+        dio.write_tile_info(os.path.join(root, "tiles", "tile_info.txt"), list(infos.values()))
+        cfg = default_config().deep_update({
+            "DATADIR": root, "HASHGRID": {"LOG2_HASHMAP_SIZE": TILE_LOG2_H},
+            "TRAINING": {"GRID_LOG2DIM": [6, 7, 8, 9], "BS_LOG2DIM": TILE_BATCH_LOG2,
+                         "NUM_SAMPLE": TILE_SAMPLES, "NUM_BG_SAMPLE": TILE_SAMPLES,
+                         "NUM_MARCH": TILE_MARCH, "TOTAL_STEP": TILE_STEPS,
+                         "CAMOPT": {"NOISE": 0.02}}})
+        tc = tile.TrainConfig.from_cfg(cfg)
+        info = dio.read_tile_info(os.path.join(root, "tiles", "tile_info.txt"))[0]
+        train_views = dio.read_training_views(
+            os.path.join(root, "tiles", "training_views.txt"))[0]
+        with open(os.path.join(root, "blocks", "test.txt")) as f:
+            test_views = {int(p[0]): [int(v) for v in p[1:]]
+                          for p in (line.split() for line in f) if p}[0]
+        views = list(dict.fromkeys(train_views[:cfg.MAX_POSES] + test_views))
+        sc = dio.load_scene(root, views, mono_depth=True, mono_normal=True)
+        views = sc.idx_list
+        # the trainer's pose noise: a seeded table over all cameras, the
+        # clean poses as ground truth
+        noise = float(cfg.TRAINING.CAMOPT.NOISE) * np.random.RandomState(cfg.SEED).randn(
+            sc.ks.shape[0], 6).astype(np.float32)
+
+        def dev(a):
+            return torch.tensor(a, device="cuda")
+
+        cams = cameras.make_cameras(dev(sc.ks), dev(sc.c2ws), noise_se3=dev(noise),
+                                    gt_c2ws=dev(sc.c2ws))
+        data = tile.TileData(
+            images=dev(sc.images),
+            occlusions=torch.ones(sc.images.shape[:3], dtype=torch.bool, device="cuda"),
+            cameras=cams, mono_depths=dev(sc.mono_depths), mono_normals=dev(sc.mono_normals))
+
+        def new_state(seed):
+            p, fs = field.create_field(
+                torch.Generator(device="cuda").manual_seed(seed), info.corner, info.size,
+                log2_hashmap_size=cfg.HASHGRID.LOG2_HASHMAP_SIZE,
+                grid_resolution=info.resolution,
+                sampler_log2dim=int(cfg.TRAINING.GRID_LOG2DIM[0]), cubic_grid=True,
+                device="cuda")
+            return tile.create_train_state(p, fs, len(views), tc, device="cuda")
+
+        state = new_state(cfg.SEED)
+        eval_view = views.index(test_views[0])
+        gt = dev(sc.images[eval_view])
+        print(f"tile: scene of {len(views)} views at {sc.H}x{sc.W}, tile {info.index} "
+              f"resolution {info.resolution}, H = 2^{cfg.HASHGRID.LOG2_HASHMAP_SIZE}, grid "
+              f"{tuple(state.field_state.occupied_grid.shape)}, config: {tc}; set up in "
+              f"{time.perf_counter() - t0:.1f} s")
+        print(f"tile: eval view {test_views[0]} of blocks/test.txt, also a training view")
+
+        def evaluate(state, label, rays_s=None):
+            img = tile.render_image(state, cams, eval_view, sc.H, sc.W, tc, device="cuda")
+            rgb = dev(img["rgb"])
+            ps, ss = float(metrics.psnr(rgb, gt)), float(metrics.ssim(rgb, gt))
+            r_err, t_err = (float(x) for x in
+                            cameras.evaluate_camera_alignment(cams, state.params.se3_refine))
+            if not (np.isfinite(ps) and np.isfinite(ss) and np.isfinite(img["rgb"]).all()):
+                fail(f"tile: non-finite eval render at {label}")
+            print(f"tile {label}: eval PSNR {ps:.4f} dB, SSIM {ss:.5f}, pose error "
+                  f"{r_err:.5f} deg / {t_err:.6f}"
+                  + ("" if rays_s is None else f"; block {rays_s:.0f} training rays/s"))
+            return ps, rgb
+
+        gen = torch.Generator().manual_seed(cfg.SEED + 1)
+        rays_per_step = (2**tc.batch_log2 // len(views)) // 4 * 4 * len(views)
+
+        def block(state, n, label):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, aux = tile.train_n_steps(state, data, tc, n, gen, device="cuda")
+            torch.cuda.synchronize()
+            rays_s = rays_per_step * n / (time.perf_counter() - t)
+            if not all(bool(torch.isfinite(v).all()) for v in aux.values()):
+                fail(f"tile: non-finite loss in the steps to {label}")
+            print(f"tile {label}: " + ", ".join(f"{k} {float(v):.5g}" for k, v in aux.items()
+                                               if v.ndim == 0))
+            return state, evaluate(state, label, rays_s)[0]
+
+        psnr0, _ = evaluate(state, "step 0")
+        curve = [psnr0]
+        while state.step < TILE_RESUME_AT:
+            state, ps = block(state, TILE_BLOCK, f"step {state.step + TILE_BLOCK}")
+            curve.append(ps)
+
+        # --- resume: save, load into a fresh state, one step from each
+        t0 = time.perf_counter()
+        path = checkpoint.checkpoint_path(root, state.step, info.index)
+        checkpoint.save_checkpoint(path, state)
+        t_save = time.perf_counter() - t0
+        restored = checkpoint.load_checkpoint(checkpoint.latest_checkpoint(root, info.index),
+                                              new_state(cfg.SEED + 7), device="cuda")
+        torch.cuda.synchronize()
+        print(f"tile resume: {os.path.getsize(path) / 2**20:.1f} MiB saved in {t_save:.1f} s, "
+              f"loaded in {time.perf_counter() - t0 - t_save:.1f} s")
+        saved, back = convert.state_tensors(state), convert.state_tensors(restored)
+        if saved.keys() != back.keys():
+            fail(f"tile resume: the restored state's arrays differ: "
+                 f"{sorted(saved.keys() ^ back.keys())}")
+        differ = [k for k in saved if not (saved[k].dtype == back[k].dtype
+                                           and torch.equal(saved[k].cpu(), back[k].cpu()))]
+        if differ:
+            fail(f"tile resume: {len(differ)} arrays differ after the round trip: {differ[:4]}")
+        print(f"tile resume: all {len(saved)} arrays (tables, decoder, se3_refine, Adam "
+              f"moments and counts, schedule counts, field and ADMM state, step) equal")
+        del saved, back
+        fork = gen.get_state()
+        state, a_saved = tile.train_step(state, data, tc, gen, device="cuda")
+        restored, a_back = tile.train_step(restored, data, tc,
+                                           torch.Generator().set_state(fork), device="cuda")
+        for k, v in a_saved.items():
+            if v.ndim:
+                continue
+            a, b = float(a_back[k]), float(v)
+            tol = max(TILE_RESUME_RTOL * abs(b), TILE_RESUME_ATOL)
+            print(f"tile resume step {k}: saved {b:.8g} restored {a:.8g} (tol {tol:.3g})")
+            if not (np.isfinite(a) and abs(a - b) <= tol):
+                fail(f"tile resume: the restored state's step differs in {k}")
+        leaves_a = tile.group_leaves(state.params)
+        leaves_b = tile.group_leaves(restored.params)
+        for name in ("hash", "decoder", "cam"):
+            worst = max(rel_l2(x, y) for x, y in zip(leaves_a[name], leaves_b[name]))
+            print(f"tile resume step params {name}: worst relative L2 {worst:.3g} "
+                  f"(tol {TILE_RESUME_RTOL})")
+            if not worst <= TILE_RESUME_RTOL:
+                fail(f"tile resume: the restored state's {name} params differ after a step")
+        # the run goes on from the restored state
+        state = restored
+        del leaves_a, leaves_b
+        torch.cuda.empty_cache()
+        state, ps = block(state, TILE_BLOCK - 1, f"step {state.step + TILE_BLOCK - 1} "
+                          f"(resumed; {TILE_BLOCK - 1} steps timed)")
+        curve.append(ps)
+        while state.step < TILE_STEPS:
+            state, ps = block(state, TILE_BLOCK, f"step {state.step + TILE_BLOCK}")
+            curve.append(ps)
+        rise = curve[-1] - curve[0]
+        print(f"tile: eval PSNR curve {[round(c, 4) for c in curve]} dB, rise {rise:.4f} dB "
+              f"(limit >= {TILE_MIN_PSNR_RISE})")
+        if not rise >= TILE_MIN_PSNR_RISE:
+            fail(f"tile: the eval PSNR rose {rise:.3f} dB in {TILE_STEPS} steps")
+
+        # --- export, and the export rendered by the renderer (B7)
+        _, train_rgb = evaluate(state, f"step {state.step} (training-side render)")
+        t0 = time.perf_counter()
+        tile_dir = os.path.join(root, f"tile-{info.index}")
+        checkpoint.export_tile(tile_dir, state, cams, views, hash_layout=tc.hash_backend)
+        ex = checkpoint.load_tile_export(tile_dir)
+        scene = renderer.load_scene([tile_dir], device="cuda")
+        img = renderer.render_image(scene, ex["ks"][eval_view], ex["c2ws"][eval_view], sc.H,
+                                    sc.W, device="cuda", num_sample=tc.num_sample,
+                                    num_bg_sample=tc.num_bg_sample, num_march=tc.num_march)
+        ex_rgb = dev(img["rgb"])
+        ps_ex, ps_tr = float(metrics.psnr(ex_rgb, gt)), float(metrics.psnr(train_rgb, gt))
+        mad = float((ex_rgb - train_rgb).abs().mean())
+        print(f"tile export: {ex['hash_layout']} tables, rendered by the renderer in "
+              f"{time.perf_counter() - t0:.1f} s with export: PSNR {ps_ex:.4f} dB against "
+              f"{ps_tr:.4f} training-side (gap {ps_ex - ps_tr:+.4f}, limit {TILE_EXPORT_DB}); "
+              f"mean |difference| {mad:.5f} (limit {TILE_EXPORT_MAD})")
+        if not (np.isfinite(ps_ex) and abs(ps_ex - ps_tr) <= TILE_EXPORT_DB
+                and mad < TILE_EXPORT_MAD):
+            fail("tile export: the export's render is off the training-side render")
+    got = {k: c.launches for k, c in counters.items()}
+    print(f"tile launches: {json.dumps(got)}")
+    for k, n in got.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched in the tile phase")
+    print(f"phase tile: {time.perf_counter() - t_phase:.1f} s")
+    return got
+
+
 def print_ptxas(lib: str, log: str) -> None:
     """One line per kernel of a library's ``-Xptxas -v`` log: registers,
     spills and shared memory."""
@@ -1241,6 +1503,8 @@ def main() -> None:
     train_rows, b1_train, b1_train_launches = train_phase(render_b3)
     rows += train_rows
     print(f"phase train: {time.perf_counter() - t1:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+    tile_phase()
+    print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def bound(r):
         t_bytes = r.pop("bytes") / HBM_BYTES_PER_S * 1e3

@@ -3,7 +3,9 @@
 Inputs are numpy arrays (or anything ``np.asarray`` reads, such as the
 JAX package's arrays): this module imports neither JAX nor the JAX
 package. Exports on disk need no conversion: ``render.renderer.load_scene``
-reads the reference layout directly.
+reads the reference layout directly. A training state maps to the JAX
+package's checkpoint keys in one place (below), which both
+``train_state`` and ``train/checkpoint.py`` use.
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ import torch
 from scanerf_tpu_torch import _device
 from scanerf_tpu_torch.models import decoder as decoder_lib
 from scanerf_tpu_torch.models import field as field_lib
-from scanerf_tpu_torch.render import renderer
 from scanerf_tpu_torch.train import tile as tile_lib
 
 
@@ -35,6 +36,9 @@ def scene(jax_scene, dtype=torch.float32, device="cuda") -> renderer.MultiTileSc
     """The port's scene from a JAX ``MultiTileScene`` (read through
     ``np.asarray``): tables, stacked decoders, resolutions, bboxes and the
     (already unioned) per-tile occupancy."""
+    # imported here: the renderer imports train/checkpoint.py, which imports this module
+    from scanerf_tpu_torch.render import renderer
+
     features = np.asarray(jax_scene.features)
     if features.ndim == 3:  # flat [T, L, H*F]
         features = features.reshape(*features.shape[:2], -1, 2)
@@ -47,52 +51,153 @@ def scene(jax_scene, dtype=torch.float32, device="cuda") -> renderer.MultiTileSc
         dtype=dtype, device=device)
 
 
-def train_state(jax_state, device="cuda") -> tile_lib.TrainState:
-    """The port's ``TrainState`` from a JAX ``TrainState`` (read through
-    ``np.asarray``): the field's flat tables and decoder, ``se3_refine``,
-    the field state, the ADMM state, the step, and each optimizer group's
-    Adam moments and counts (from optax's ``multi_transform`` state) in the
-    state of the port's ``torch.optim.Adam``. Training resumed from it
-    continues the JAX run. A state trained with ``cam_enable=False`` holds
-    no Adam state for the cameras (optax's ``set_to_zero``): its optimizer
-    is built as ``build_optimizer`` builds it then, with no camera group.
-    Any other group without an Adam state raises."""
+# ---------------------------------------------------------------------------
+# a tile's training state under the JAX package's checkpoint keys
+# ---------------------------------------------------------------------------
+# The JAX ``save_checkpoint`` writes each leaf of its TrainState under its
+# pytree path: ".params/.field/.features", ".admm/.rho", ".step", and for
+# optax's ``multi_transform`` state
+# ".opt_state/.inner_states/['hash']/.inner_state/[0]/.mu/.field/.features".
+# Each group's chain (tile.py:236-280) holds its Adam state (count, mu, nu)
+# and, last, its schedule's count: hash (Adam, schedule), decoder (decayed
+# weights, which keep no state, then Adam, schedule), cam (Adam, schedule;
+# with cam_enable=False optax's set_to_zero, which keeps nothing). The
+# port's TrainState holds Adam's count as each tensor's ``step`` and the
+# schedule's as its group's ``count``.
+
+# paths of ``tile.group_leaves``' tensors, in its order, below .params / .mu / .nu
+_GROUP_PATHS = {
+    "hash": [".field/.features"],
+    "decoder": [f".field/.decoder/['{n}']/['{k}']"
+                for n in decoder_lib.PACK_ORDER for k in ("w", "b")],
+    "cam": [".se3_refine"],
+}
+_CHAIN = {"hash": (0, 1), "decoder": (1, 2), "cam": (0, 1)}  # (Adam, schedule) index
+_FIELD_STATE = ("resolutions", "min_bbox", "bbox_size", "occupied_grid")
+_ADMM = ("shared_se3", "delta_se3", "overlap_flags", "rho")
+
+
+def _chain(group: str, part: str) -> str:
+    """Key prefix of a group's Adam state (``part="adam"``) or schedule state."""
+    at = _CHAIN[group][0 if part == "adam" else 1]
+    return f".opt_state/.inner_states/['{group}']/.inner_state/[{at}]"
+
+
+def _state_items(state: tile_lib.TrainState, missing_moment):
+    """(key, tensor) of every array of ``state``: its own tensors, and new
+    int32 CPU scalars for the counts and the step. A moment that Adam has
+    not made yet (before the first step) is ``missing_moment(param)``."""
+    leaves = tile_lib.group_leaves(state.params)
+    for group, paths in _GROUP_PATHS.items():
+        for path, t in zip(paths, leaves[group]):
+            yield ".params/" + path, t
+    opt = state.optimizer
+    for grp in opt.param_groups:
+        name = grp["name"]
+        held = [opt.state.get(p, {}) for p in grp["params"]]
+        steps = {int(s["step"]) for s in held if "step" in s} or {0}
+        if len(steps) != 1:
+            raise ValueError(f"group {name!r} holds Adam counts {sorted(steps)}")
+        adam = _chain(name, "adam")
+        yield adam + "/.count", torch.tensor(steps.pop(), dtype=torch.int32)
+        for path, p, s in zip(_GROUP_PATHS[name], grp["params"], held):
+            yield adam + "/.mu/" + path, s["exp_avg"] if s else missing_moment(p)
+            yield adam + "/.nu/" + path, s["exp_avg_sq"] if s else missing_moment(p)
+        yield _chain(name, "schedule") + "/.count", torch.tensor(grp["count"],
+                                                                  dtype=torch.int32)
+    for n in _FIELD_STATE:
+        yield ".field_state/." + n, getattr(state.field_state, n)
+    for n in _ADMM:
+        yield ".admm/." + n, getattr(state.admm, n)
+    yield ".step", torch.tensor(state.step, dtype=torch.int32)
+
+
+def state_tensors(state: tile_lib.TrainState) -> dict:
+    """Every array of a port ``TrainState`` under the key the JAX package's
+    ``save_checkpoint`` gives it: the state's own tensors, Adam's moments
+    (zeros before the first step) and counts, the schedules' counts, the
+    field and ADMM state and the step."""
+    return dict(_state_items(state, torch.zeros_like))
+
+
+def state_like(state: tile_lib.TrainState) -> dict:
+    """{key: tensor} of ``state`` whose shapes and dtypes are those of its
+    arrays (a moment not made yet stands as its param): what
+    ``load_checkpoint`` reads of its template, with nothing allocated."""
+    return dict(_state_items(state, lambda p: p))
+
+
+def state_from_arrays(get, cam_enable: bool, device, like=None) -> tile_lib.TrainState:
+    """A port ``TrainState`` on ``device`` from ``get(key)``, an array under
+    each JAX checkpoint key. With ``like`` ({key: tensor}), each array takes
+    its entry's dtype, and its shape where only the layout differs (tables
+    stored as [L, H, F] before the flat [L, H*F] form); where the sizes
+    differ the stored shape wins (an occupancy grid re-split by pruning).
+    Without ``like``, floats are read as f32 and the rest as stored."""
     dev = _device.resolve(device)
 
-    def T(a, dtype=None):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+    def T(key):
+        a = np.asarray(get(key))
+        if like is None:
+            return torch.tensor(a.astype(np.float32) if a.dtype.kind == "f" else a, device=dev)
+        ref = like[key]
+        if a.shape != tuple(ref.shape) and a.size == ref.numel():
+            a = a.reshape(ref.shape)
+        return torch.tensor(a, dtype=ref.dtype, device=dev)
 
-    p = jax_state.params
+    leaves = {g: [T(".params/" + p) for p in paths] for g, paths in _GROUP_PATHS.items()}
+    dec = iter(leaves["decoder"])
     params = tile_lib.TileParams(
         field=field_lib.FieldParams(
-            features=T(p.field.features, torch.float32),
-            decoder={n: {k: T(p.field.decoder[n][k], torch.float32) for k in ("w", "b")}
-                     for n in decoder_lib.PACK_ORDER}),
-        se3_refine=T(p.se3_refine, torch.float32))
-    chains = {name: s.inner_state for name, s in jax_state.opt_state.inner_states.items()}
-    # set_to_zero keeps an empty state: the cameras are not optimized
-    cam_enable = len(chains["cam"]) > 0
+            features=leaves["hash"][0],
+            decoder={n: {k: next(dec) for k in ("w", "b")} for n in decoder_lib.PACK_ORDER}),
+        se3_refine=leaves["cam"][0])
     opt = tile_lib.build_optimizer(tile_lib.TrainConfig(cam_enable=cam_enable), params)
-    for group in opt.param_groups:
-        chain = chains[group["name"]]
-        adam = [s for s in chain if hasattr(s, "mu")]
-        if len(adam) != 1:
-            raise ValueError(f"optimizer group {group['name']!r} holds no Adam state")
-        group["count"] = int(chain[-1].count)
-        mu = tile_lib.group_leaves(adam[0].mu)[group["name"]]
-        nu = tile_lib.group_leaves(adam[0].nu)[group["name"]]
-        for leaf, m, v in zip(group["params"], mu, nu):
-            opt.state[leaf] = {"step": torch.tensor(float(adam[0].count), device=dev),
-                               "exp_avg": T(m, torch.float32),
-                               "exp_avg_sq": T(v, torch.float32)}
-    fs, admm = jax_state.field_state, jax_state.admm
+    for grp in opt.param_groups:
+        name = grp["name"]
+        grp["count"] = int(get(_chain(name, "schedule") + "/.count"))
+        adam = _chain(name, "adam")
+        step = float(get(adam + "/.count"))
+        for path, p in zip(_GROUP_PATHS[name], grp["params"]):
+            opt.state[p] = {"step": torch.tensor(step, dtype=torch.float32, device=dev),
+                            "exp_avg": T(adam + "/.mu/" + path),
+                            "exp_avg_sq": T(adam + "/.nu/" + path)}
     return tile_lib.TrainState(
         params=params, optimizer=opt,
-        field_state=field_lib.FieldState(
-            resolutions=T(fs.resolutions, torch.int32), min_bbox=T(fs.min_bbox, torch.float32),
-            bbox_size=T(fs.bbox_size, torch.float32), occupied_grid=T(fs.occupied_grid, torch.bool)),
-        admm=tile_lib.AdmmState(
-            shared_se3=T(admm.shared_se3, torch.float32),
-            delta_se3=T(admm.delta_se3, torch.float32),
-            overlap_flags=T(admm.overlap_flags, torch.bool), rho=T(admm.rho, torch.float32)),
-        step=int(jax_state.step))
+        field_state=field_lib.FieldState(**{n: T(".field_state/." + n) for n in _FIELD_STATE}),
+        admm=tile_lib.AdmmState(**{n: T(".admm/." + n) for n in _ADMM}),
+        step=int(get(".step")))
+
+
+def _resolve(tree, key: str):
+    """The leaf of a live JAX pytree at a checkpoint key: ".name" is an
+    attribute, "['name']" an item, "[i]" an index."""
+    for part in key.split("/"):
+        if part.startswith("."):
+            tree = getattr(tree, part[1:])
+        elif part.startswith("['"):
+            tree = tree[part[2:-2]]
+        else:
+            tree = tree[int(part[1:-1])]
+    return tree
+
+
+def train_state(jax_state, device="cuda") -> tile_lib.TrainState:
+    """The port's ``TrainState`` from a JAX ``TrainState`` (read through
+    ``np.asarray``) under the same key mapping as ``load_checkpoint``: the
+    field's flat tables and decoder, ``se3_refine``, the field state, the
+    ADMM state, the step, and each optimizer group's Adam moments and
+    counts in the state of the port's ``torch.optim.Adam``. Training
+    resumed from it continues the JAX run. A state trained with
+    ``cam_enable=False`` holds no Adam state for the cameras (optax's
+    ``set_to_zero``): its optimizer is built as ``build_optimizer`` builds
+    it then, with no camera group."""
+    _device.resolve(device)
+    try:
+        _resolve(jax_state, _chain("cam", "adam") + "/.count")
+        cam_enable = True
+    except (IndexError, TypeError):  # set_to_zero's empty chain
+        cam_enable = False
+    return state_from_arrays(lambda key: np.asarray(_resolve(jax_state, key)),
+                             cam_enable, device)
+

@@ -43,6 +43,10 @@ def _linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"] + p["b"]
 
 
+def spatial_hidden(params: dict, features: torch.Tensor) -> torch.Tensor:
+    return _linear(params["spatial1"], gaussian_act(_linear(params["spatial0"], features)))
+
+
 def apply_decoder(params: dict, features, viewdirs, weight_feature=None) -> dict:
     """Decoder forward. features [..., 32], viewdirs [..., 3] (not
     normalized), optional annealing weights [32]. Params may carry a
@@ -51,8 +55,7 @@ def apply_decoder(params: dict, features, viewdirs, weight_feature=None) -> dict
     viewdirs = viewdirs / (torch.linalg.vector_norm(viewdirs, dim=-1, keepdim=True) + 1e-8)
     if weight_feature is not None:
         features = features * weight_feature
-    h = gaussian_act(_linear(params["spatial0"], features))
-    H = _linear(params["spatial1"], h)
+    H = spatial_hidden(params, features)
     h_geo, h_dir = H[..., :32], H[..., 32:]
     sigma = softplus(_linear(params["sigma"], h_geo))
     diffuse = torch.sigmoid(_linear(params["diffuse"], h_geo))
@@ -64,16 +67,69 @@ def apply_decoder(params: dict, features, viewdirs, weight_feature=None) -> dict
     return {"sigma": sigma, "diffuse": diffuse, "specular": specular, "tint": tint}
 
 
-def init_decoder(generator: torch.Generator, device="cpu") -> dict:
+def _linear_init(generator: torch.Generator, fan_in: int, fan_out: int, device) -> dict:
     """torch.nn.Linear's default init, U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
-    for every layer's weight and bias. ``generator`` lives on ``device``."""
-    out = {}
-    for name in PACK_ORDER:
-        fan_in, fan_out = SHAPES[name]
-        bound = 1.0 / float(np.sqrt(fan_in))
-        out[name] = {k: (torch.rand(shape, generator=generator, device=device) * 2 - 1) * bound
-                     for k, shape in (("w", (fan_in, fan_out)), ("b", (fan_out,)))}
-    return out
+    of a weight [fan_in, fan_out] and then a bias [fan_out]."""
+    bound = 1.0 / float(np.sqrt(fan_in))
+    return {k: (torch.rand(shape, generator=generator, device=device) * 2 - 1) * bound
+            for k, shape in (("w", (fan_in, fan_out)), ("b", (fan_out,)))}
+
+
+def init_decoder(generator: torch.Generator, device="cpu") -> dict:
+    """Every layer at torch.nn.Linear's default init. ``generator`` lives
+    on ``device``."""
+    return {name: _linear_init(generator, *SHAPES[name], device) for name in PACK_ORDER}
+
+
+def inference_sigma(params: dict, features: torch.Tensor) -> torch.Tensor:
+    """Density alone, [..., 1], of features [..., 32] (annealing weights
+    already applied)."""
+    return softplus(_linear(params["sigma"], spatial_hidden(params, features)[..., :32]))
+
+
+def positional_encoding(x: torch.Tensor, L: int) -> torch.Tensor:
+    """[x, sin(2^i x), cos(2^i x)] for i < L."""
+    outs = [x]
+    for i in range(L):
+        outs.append(torch.sin(2.0**i * x))
+        outs.append(torch.cos(2.0**i * x))
+    return torch.cat(outs, dim=-1)
+
+
+def weighted_positional_encoding(x: torch.Tensor, L: int, global_step, start: float,
+                                 end: float) -> torch.Tensor:
+    """BARF's coarse-to-fine encoding: band k weighs
+    (1 - cos(clip(alpha - k, 0, 1) * pi)) / 2 at
+    alpha = (step - start) / (end - start) * L."""
+    emb = positional_encoding(x, L)
+    step = torch.as_tensor(global_step, dtype=x.dtype, device=x.device)
+    alpha = ((step - start) / (end - start) * L).clamp(0.0, L)
+    k = torch.arange(L, dtype=x.dtype, device=x.device)
+    w = (1.0 - torch.cos((alpha - k).clamp(0.0, 1.0) * np.pi)) / 2.0
+    C = x.shape[-1]
+    band_w = w.repeat_interleave(2 * C)  # sin and cos of each band, per channel
+    return torch.cat([emb[..., :C], emb[..., C:] * band_w], dim=-1)
+
+
+def init_general_mlp(generator: torch.Generator, num_in: int, num_out: int,
+                     hidden_depth: int = 4, hidden_width: int = 64,
+                     device="cpu") -> list[dict]:
+    """A general MLP's layers at torch.nn.Linear's default init: depth 1
+    is one linear layer, else in -> width, (depth - 2) x width -> width,
+    width -> out."""
+    if hidden_depth == 1:
+        return [_linear_init(generator, num_in, num_out, device)]
+    dims = [num_in] + [hidden_width] * (hidden_depth - 1) + [num_out]
+    return [_linear_init(generator, a, b, device) for a, b in zip(dims[:-1], dims[1:])]
+
+
+def apply_general_mlp(layers: list[dict], x: torch.Tensor, activation=gaussian_act,
+                      output_act: bool = False) -> torch.Tensor:
+    for i, p in enumerate(layers):
+        x = _linear(p, x)
+        if i < len(layers) - 1 or output_act:
+            x = activation(x)
+    return x
 
 
 def pack_params(params: dict) -> torch.Tensor:

@@ -63,12 +63,15 @@ def compute_sampler_log2dim(bbox_size2, sampler_log2dim: int) -> np.ndarray:
 
 def create_field(generator: torch.Generator, bbox_corner, bbox_size,
                  log2_hashmap_size: int = 24, grid_resolution=(32, 2048),
-                 sampler_log2dim: int = 4, device="cuda") -> tuple[FieldParams, FieldState]:
-    """A tile's field on ``device``, its occupancy grid all occupied (as
-    training starts); tables and decoder drawn from ``generator`` (a
-    generator on ``device``). The JAX function's ``occupied_grid`` and
-    ``cubic_grid`` options wait for the orchestration slice (ROADMAP.md
-    queue A, item 'Orchestration')."""
+                 sampler_log2dim: int = 4, occupied_grid=None, cubic_grid: bool = False,
+                 device="cuda") -> tuple[FieldParams, FieldState]:
+    """A tile's field on ``device``; tables and decoder drawn from
+    ``generator`` (a generator on ``device``). The occupancy grid is
+    ``occupied_grid`` (a bool array of the grid's shape), or all occupied,
+    as training starts. ``cubic_grid=True`` gives the grid
+    ``sampler_log2dim`` on every axis (the trainer's choice, so that tiles
+    of any aspect share one grid shape); else each axis is cut by the
+    bbox's aspect."""
     dev = _device.resolve(device)
     bbox_corner = np.asarray(bbox_corner, dtype=np.float32)
     bbox_size = np.asarray(bbox_size, dtype=np.float32)
@@ -78,7 +81,15 @@ def create_field(generator: torch.Generator, bbox_corner, bbox_size,
     finest = (size2 / size2.min() * grid_resolution[1]).astype(np.int32)
     base = (size2 / size2.min() * grid_resolution[0]).astype(np.int32)
     resolutions = hash_encode.make_level_resolutions(base, finest, N_LEVELS)
-    grid_shape = tuple(int(2**d) for d in compute_sampler_log2dim(size2, sampler_log2dim))
+    log2dims = np.array([sampler_log2dim] * 3) if cubic_grid \
+        else compute_sampler_log2dim(size2, sampler_log2dim)
+    grid_shape = tuple(int(2**d) for d in log2dims)
+    if occupied_grid is None:
+        occupied_grid = np.ones(grid_shape, dtype=bool)
+    occupied_grid = np.asarray(occupied_grid, dtype=bool)
+    if occupied_grid.shape != grid_shape:
+        raise ValueError(f"occupied_grid is {occupied_grid.shape}, the field's grid "
+                         f"{grid_shape}")
     params = FieldParams(
         features=hash_encode.init_features(generator, N_LEVELS, log2_hashmap_size,
                                            N_FEATURES, device=dev),
@@ -87,7 +98,7 @@ def create_field(generator: torch.Generator, bbox_corner, bbox_size,
         resolutions=torch.tensor(resolutions, device=dev),
         min_bbox=torch.tensor(min_bbox, device=dev),
         bbox_size=torch.tensor(size2, device=dev),
-        occupied_grid=torch.ones(grid_shape, dtype=torch.bool, device=dev))
+        occupied_grid=torch.tensor(occupied_grid, device=dev))
     return params, state
 
 

@@ -21,9 +21,10 @@ renders fg + bg with ``models/field.py::render_rays`` and applies the loss
 registry with its warm-up and decay schedules. The update is in place: the
 state's tensors are overwritten, as the JAX step donates its state.
 
-Entry points (``create_train_state``, ``train_step`` and the evaluation
-renders ``render_chunk``, ``render_depth_batch``, ``render_image``) take
-``device`` and default to ``"cuda"``; without CUDA they raise.
+Entry points (``create_train_state``, ``train_step``, ``train_n_steps``
+and the evaluation renders ``render_chunk``, ``render_depth_batch``,
+``render_image``) take ``device`` and default to ``"cuda"``; without CUDA
+they raise.
 """
 
 from __future__ import annotations
@@ -46,10 +47,13 @@ from scanerf_tpu_torch.train.scheduler import exp_window_schedule
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The JAX ``TrainConfig`` (tile.py:47-161) without its TPU-only
-    permutation knobs. ``hash_backend`` defaults to "windowed", the
-    production path (the JAX dataclass defaults to "xla" for its CPU
-    oracles; the port's global-hash backend is not ported yet). Options
-    the port does not have raise ``NotImplementedError`` in the step."""
+    permutation knobs ``permute_mode`` and ``run_cap_frac``, which
+    ``from_cfg`` does not read (config keys ``TRAINING.PERMUTE_MODE`` and
+    ``RUN_CAP_FRAC``: bitwise-equal ways of sorting the stream on a TPU).
+    ``hash_backend`` defaults to "windowed", the production path (the JAX
+    dataclass defaults to "xla" for its CPU oracles; the port's
+    global-hash backend is not ported yet). Options the port does not
+    have raise ``NotImplementedError`` in the step."""
 
     num_sample: int = 128
     num_bg_sample: int = 128
@@ -89,6 +93,51 @@ class TrainConfig:
     ray_shards: int = 1
     hash_bwd_bf16: bool = False
     fused_decoder: bool = True
+
+    @classmethod
+    def from_cfg(cls, cfg) -> "TrainConfig":
+        """The training config of a ``config.ConfigDict``, read key for key
+        as the JAX ``TrainConfig.from_cfg`` reads it."""
+        T = cfg.TRAINING
+        L = T.LOSS
+        return cls(
+            num_sample=T.NUM_SAMPLE,
+            num_bg_sample=T.NUM_BG_SAMPLE,
+            batch_log2=T.BS_LOG2DIM,
+            total_step=T.TOTAL_STEP,
+            num_march=T.get("NUM_MARCH", 512),
+            w_rgb=L.WEIGHT_RGB_LOSS,
+            w_warp=L.WEIGHT_WARP_LOSS,
+            w_depth=L.WEIGHT_DEPTH_LOSS,
+            w_smooth=L.WEIGHT_DEPTH_SMOOTH_LOSS,
+            warp_warming=L.WARP_WARPING,
+            rgb_start=L.RGB_LOSS_START,
+            warp_start=L.WARP_LOSS_START,
+            depth_start=L.DEPTH_LOSS_START,
+            smooth_start=L.DEPTH_SMOOTH_LOSS_START,
+            alpha=L.ALPHA,
+            gamma=L.GAMMA,
+            rho=cfg.RHO,
+            syn_start=cfg.SYN_START,
+            invalid_underground=cfg.INVALID_UNDERGROUND,
+            bg_mode=T.BG_MODE,
+            eta_hash=T.ETA.HASH_FEATURE,
+            eta_decoder=T.ETA.DECODER,
+            eta_cam=T.ETA.CAM,
+            cam_enable=T.CAMOPT.ENABLE,
+            cam_start_steps=T.CAMOPT.START_STEPS,
+            hash_backend=T.get("HASH_BACKEND", "windowed"),
+            table_shards=T.get("TABLE_SHARDS", 1),
+            ray_shards=T.get("RAY_SHARDS", 1),
+            hash_bwd_bf16=T.get("HASH_BWD_BF16", False),
+            fused_decoder=T.get("FUSED_DECODER", True),
+            compact_dead_rays=T.get("COMPACT_DEAD_RAYS", True),
+            stochastic_hash_grad=T.get("STOCHASTIC_HASH_GRAD", False),
+            warp_vis_sample=L.get("WARP_VIS_SAMPLE", 16),
+            warp_vis_bg_sample=L.get("WARP_VIS_BG_SAMPLE", 8),
+            warp_vis_march=L.get("WARP_VIS_MARCH", 64),
+            warp_top_k=L.get("WARP_TOP_K", 5),
+        )
 
 
 @dataclasses.dataclass
@@ -414,6 +463,16 @@ def train_step(state: TrainState, data: TileData, tc: TrainConfig,
     apply_gradients(state, grads, tc)
     state.step += 1
     _mark(stage_hook, "optimizer")
+    return state, aux
+
+
+def train_n_steps(state: TrainState, data: TileData, tc: TrainConfig, n: int,
+                  generator: torch.Generator, device="cuda"):
+    """``n`` steps of ``train_step`` in a host loop, each batch drawn from
+    ``generator`` -> (state, the last step's aux)."""
+    aux = None
+    for _ in range(n):
+        state, aux = train_step(state, data, tc, generator, device=device)
     return state, aux
 
 
