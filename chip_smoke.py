@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-Three phases, driven through the port's entry points, with the kernels'
+Four phases, driven through the port's entry points, with the kernels'
 launch counts set to 0 just before each counted run and read just after:
 render and training, each in both decoder configurations, fused (the
 default) and unfused (slice 3: ``fuse_decoder=False`` /
 ``fused_decoder=False``); then one tile from a scene directory to an
-export.
+export; then a city of tiles through the multi-tile ADMM trainer.
 
 Render (slice 1). Builds the port's CUDA kernels from csrc/, writes a
 4-tile scene in the reference export layout (16 levels x 2 features, H =
@@ -62,26 +62,52 @@ resolution (32, 2048)), a config from ``default_config().deep_update``
 (H = 2^21, a 64^3 grid, 2^14 rays, 128 + 128 samples, M 512, the
 reference's full loss recipe, pose noise 0.02) and
 ``TrainConfig.from_cfg``, ``load_scene`` / ``read_tile_info`` /
-``read_training_views``, ``create_field(cubic_grid=True)`` and 400 fused
+``read_training_views``, ``create_field(cubic_grid=True)`` and 200 fused
 steps of ``train_n_steps`` in blocks of 100 (B1, B2, B5, B6). At step 0
 and after each block: the eval PSNR and SSIM of ``tile.render_image`` of
 the blocks/test.txt view (also a training view), the pose error of
 ``evaluate_camera_alignment`` and the block's training rays/s. At step
-200 it saves a checkpoint, loads it into a fresh state, holds every array
+100 it saves a checkpoint, loads it into a fresh state, holds every array
 of the two equal, takes one step from each on the same batch and holds
 their losses and updated params together, and goes on from the restored
-state. After step 400 the PSNR must have risen 3 dB; ``export_tile``
+state. After step 200 the PSNR must have risen 3 dB; ``export_tile``
 (windowed), ``load_scene`` and the renderer's ``render_image`` (B7) give
 the export's render of the same view, held to the training-side render
 (1 dB PSNR, 0.1 mean |difference|). It prints the phase's launches of
 B1, B2, B5, B6 and B7 on a line of its own.
+
+City (slice 8). The port's ``Trainer`` on a city scene directory at
+bench.py's width, in a temporary directory: ``write_city_scene_dir`` (2 x
+2 tiles, 96 cameras at 128x128; the tile boxes rewritten at resolution
+(32, 2048) and raised 0.2, so that the drone path passes through them), a
+config from ``default_config().deep_update`` (H = 2^21 windowed, 2^14
+rays, 128 + 128 samples, M 512, rho 100, SYN_ITERS 25, the full loss
+recipe, pose noise 0.01, GRID_LOG2DIM [6, 7]) and ``Trainer(cfg).run()``:
+4 ADMM rounds of 4 tiles x 25 steps (B1, B2, B5, B6), the occlusion
+refresh and evals at steps 50 and 100, checkpoints at 50, exports at
+100. Then the trainer's own ``_prune`` at the next rung (64^3 -> 128^3;
+the pruning query runs B2 and B3), one more round on the pruned grids
+and ``_export``, and the renderer (B7) on the four exports. Gates: a log
+line for every round with finite losses, the run's last mean loss below
+its first; a finite admm_error.txt line a round and shared cameras; the
+last round's consensus against the plain ``consensus_update`` on the
+CPU (1e-6); each tile's eval PSNR at step 100 at least 2 dB above step
+0's; the occlusion refresh run from at least one shared depth; one chunk
+of the pruning query against the CPU (1e-5 of its largest entry) and
+tile 0's pruned grid equal to the CPU prune outside a 1e-4 band around
+the threshold; four exports and ``refined_camera.log``, the renderer's
+image finite. It prints each round's seconds and training rays/s, the
+phase's launches ("city launches:"), seconds, checkpoint size and peak
+device memory.
 
 It prints the card's name and power limit (nvidia-smi), each phase's
 seconds, and, before the last line, one JSON line ``{"kernels": [...]}``
 with B1-B7: per kernel, its launches in the counted runs, max error
 against the plain version, times, and the bound (least time the card
 could take for the same work); B1's row also has its kernel's time alone
-and each training shape's numbers. The last line is ``{"ok": true,
+and each training shape's numbers, every row its launches in the city
+phase (``city_launches``), and B3's row its numbers at the pruning
+query's shape (``pruning_query``). The last line is ``{"ok": true,
 "device": {...}}``.
 
 Any failed build, launch or comparison ends the script with a non-zero
@@ -91,6 +117,7 @@ result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 import json
@@ -896,7 +923,8 @@ def train_phase(render_b3: dict) -> list[dict]:
 # tile: one tile from a scene directory to an export (slice 7)
 # ---------------------------------------------------------------------------
 
-TILE_STEPS, TILE_BLOCK, TILE_RESUME_AT = 400, 100, 200
+# 200 steps since the city phase was added (400 before), to keep the script's time
+TILE_STEPS, TILE_BLOCK, TILE_RESUME_AT = 200, 100, 100
 # bench.py's width: 16 cameras at 256x256, 2^14 rays a step, 128 + 128
 # samples, a 512-step march, H = 2^21
 TILE_CAMS, TILE_HW, TILE_BATCH_LOG2, TILE_LOG2_H = 16, 256, 14, 21
@@ -930,9 +958,9 @@ def tile_phase() -> dict:
     points: ``write_scene_dir`` (16 cameras at 256x256, one tile, mono
     priors), a config from ``default_config`` and ``TrainConfig.from_cfg``,
     ``load_scene`` with seeded pose noise, ``create_field(cubic_grid=True)``
-    at H = 2^21, ``train_n_steps`` for 400 full-recipe fused steps in
+    at H = 2^21, ``train_n_steps`` for 200 full-recipe fused steps in
     blocks of 100 with the eval PSNR / SSIM, the pose error and the rays/s
-    of each block; a checkpoint at step 200 saved, loaded into a fresh
+    of each block; a checkpoint at step 100 saved, loaded into a fresh
     state and held against the saved one, one step from each; then
     ``export_tile`` and the export rendered by the renderer. Returns the
     phase's launches of each kernel."""
@@ -1129,6 +1157,352 @@ def tile_phase() -> dict:
             fail(f"kernel {k} was not launched in the tile phase")
     print(f"phase tile: {time.perf_counter() - t_phase:.1f} s")
     return got
+
+
+# ---------------------------------------------------------------------------
+# city: the multi-tile ADMM trainer from a city scene directory (slice 8)
+# ---------------------------------------------------------------------------
+
+# a 2x2 city (4 tiles), 96 cameras at 128x128, at bench.py's width: 2^14
+# rays a step, 128 + 128 samples, M 512, H = 2^21 (windowed), the
+# reference's full loss recipe; 4 ADMM rounds of 25 steps
+CITY_NX, CITY_NZ, CITY_CAMS, CITY_HW = 2, 2, 96, 128
+CITY_STEPS, CITY_SYN = 100, 25
+CITY_KIND = {"B1": "cdf_sampler", "B2": "stream_pack", "B3": "hash_lookup_fwd",
+             "B5": "fused_train_fwd", "B6": "fused_train_bwd", "B7": "fused_hash_decode"}
+# Limits of the city phase:
+# - each tile's eval PSNR after step 100 at least 2 dB above its step-0
+#   PSNR (the tile phase's single tile rises 7 dB in 100 steps; four tiles
+#   sharing cameras through ADMM at the same rates must rise too);
+CITY_MIN_PSNR_RISE = 2.0
+# - the last round's consensus on the card against the plain
+#   consensus_update on the CPU from the same inputs: z and the dual
+#   within 1e-6 of their largest entry, both residuals within 1e-6
+#   absolute (the same f32 operations; the scatter's atomics add in
+#   another order; the dual residual of a round whose poses no longer
+#   move is ~0, so a relative limit would hold rounding to itself);
+CITY_CONSENSUS_TOL = 1e-6
+# - one chunk of the pruning query (field_inference_sigma through B2 and
+#   B3) within 1e-5 of its largest entry of the plain gather on the CPU,
+#   B3's tolerance on the training stream;
+CITY_SIGMA_TOL = 1e-5
+# - tile 0's pruned grid equal to the CPU prune of the same state, except
+#   in cells whose largest alpha lies within 1e-4 of the threshold (a
+#   density within 1e-5 relative moves alpha by less than that).
+CITY_PRUNE_BAND = 1e-4
+
+
+def city_phase() -> dict:
+    """The port's ``Trainer`` on a city scene directory, on the card:
+    ``write_city_scene_dir`` (2 x 2 tiles, 96 cameras at 128x128; tile
+    boxes at resolution (32, 2048), raised 0.2 so that the drone path
+    passes through them and the occlusion refresh publishes depths),
+    ``Trainer(cfg).run()`` (4 ADMM rounds of 25 full-recipe steps a tile,
+    the refresh and evals at step 50 and 100, checkpoints at step 50,
+    exports at step 100), then the trainer's own ``_prune`` at the
+    ladder's next rung (64^3 -> 128^3), one more round on the pruned
+    grids and ``_export``; the exports rendered by the renderer (B7).
+    Returns the phase's launches of each kernel and B3's numbers at the
+    pruning query's shape."""
+    from scanerf_tpu_torch.config import default_config
+    from scanerf_tpu_torch.data import io as dio
+    from scanerf_tpu_torch.data.city import write_city_scene_dir
+    from scanerf_tpu_torch.models import field, occupancy
+    from scanerf_tpu_torch.ops.kernels import fused_render as fr
+    from scanerf_tpu_torch.ops.kernels import fused_train as ft
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+    from scanerf_tpu_torch.ops.kernels import sampler as sp
+    from scanerf_tpu_torch.parallel import consensus
+    from scanerf_tpu_torch.parallel import tile_parallel as tp
+    from scanerf_tpu_torch.render import renderer
+    from scanerf_tpu_torch.train import checkpoint, tile
+    from scanerf_tpu_torch.train.trainer import Trainer
+    from scanerf_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"B1": sp.sample_fused, "B2": hw.pack, "B3": hw.lookup_fwd,
+                "B5": ft.train_fwd, "B6": ft.train_bwd, "B7": fr.hash_decode_fused}
+    for c in counters.values():
+        c.launches = 0
+    round_s: list[float] = []
+    rays_per_step = [0]
+    admm_round = tp.admm_round
+
+    def timed_round(*a, **kw):  # the round's steps and consensus, synchronised
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = admm_round(*a, **kw)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t)
+        n = len(a[0]) * a[5] * rays_per_step[0]
+        print(f"city round {len(round_s)}: {round_s[-1]:.2f} s, {n / round_s[-1]:.0f} "
+              f"training rays/s ({len(a[0])} tiles x {a[5]} steps x {rays_per_step[0]} rays)")
+        return out
+
+    tp.admm_round = timed_round
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            got, b3 = _city_run(root, counters, rays_per_step, default_config, dio,
+                                write_city_scene_dir, field, occupancy, hw, consensus,
+                                renderer, checkpoint, tile, Trainer, metrics)
+    finally:
+        tp.admm_round = admm_round
+    print(f"city: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"phase city: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": got, "b3": b3}
+
+
+def _city_run(root, counters, rays_per_step, default_config, dio, write_city_scene_dir, field,
+              occupancy, hw, consensus, renderer, checkpoint, tile, Trainer, metrics):
+    t0 = time.perf_counter()
+    summary = write_city_scene_dir(root, nx_tiles=CITY_NX, nz_tiles=CITY_NZ,
+                                   n_cameras=CITY_CAMS, H=CITY_HW, W=CITY_HW)
+    path = os.path.join(root, "tiles", "tile_info.txt")
+    infos = list(dio.read_tile_info(path).values())
+    for info in infos:
+        info.resolution = (32, 2048)  # bench.py's; the city writer writes (16, 1024)
+        info.corner = info.corner + np.array([0.0, 0.2, 0.0], np.float32)
+    dio.write_tile_info(path, infos)
+    cfg = default_config().deep_update({
+        "DATADIR": root, "TILES": list(range(CITY_NX * CITY_NZ)), "RHO": 100.0,
+        "SYN_ITERS": CITY_SYN, "EVAL_STEP": 50, "UPDATE_MASK_STEP": 50, "CKPT_STEP": 50,
+        "HASHGRID": {"LOG2_HASHMAP_SIZE": 21},
+        "TRAINING": {"TOTAL_STEP": CITY_STEPS, "BS_LOG2DIM": 14, "NUM_SAMPLE": 128,
+                     "NUM_BG_SAMPLE": 128, "NUM_MARCH": 512, "GRID_LOG2DIM": [6, 7],
+                     "PRUNING_TH": [0.1], "ADJUST_STEP": 50, "CAMOPT": {"NOISE": 0.01}}})
+    print(f"city: scene {summary} written in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_cams = tr.cam_maps.shape[1]
+    shared = int((np.bincount(tr.cam_maps[tr.cam_maps >= 0]) > 1).sum())
+    print(f"city: Trainer built in {time.perf_counter() - t0:.1f} s: {len(tr.states)} tiles, "
+          f"views {[len(v) for v in tr.view_lists]} (padded to {n_cams}), {shared} cameras "
+          f"shared between tiles, first grids occupied "
+          f"{[round(float(s.field_state.occupied_grid.float().mean()), 4) for s in tr.states]}"
+          f", config: {tr.tc}")
+    rays_per_step[0] = (2**tr.tc.batch_log2 // n_cams) // 4 * 4 * n_cams
+
+    evals: dict[int, dict] = {}
+    published: list[int] = []
+    ev, refresh = tr._eval, tr._refresh_occlusion_masks
+
+    def eval_(step):
+        evals[step] = ev(step)
+        print(f"city eval step {step}: " + ", ".join(
+            f"tile {t} PSNR {p:.4f} dB SSIM {s:.5f}" for t, (p, s) in evals[step].items()))
+        return evals[step]
+
+    def refresh_():
+        published.append(refresh())
+        return published[-1]
+
+    tr._eval, tr._refresh_occlusion_masks = eval_, refresh_
+    duty_s: dict[str, float] = {}
+    for name in ("_eval", "_refresh_occlusion_masks", "_save_round_checkpoints", "_export"):
+        def timed_duty(*a, _fn=getattr(tr, name), _name=name, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            duty_s[_name] = duty_s.get(_name, 0.0) + time.perf_counter() - t
+            return out
+        setattr(tr, name, timed_duty)
+    eval_(0)
+    t0 = time.perf_counter()
+    tr.run()
+    print(f"city: Trainer.run() {time.perf_counter() - t0:.1f} s, of it "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in duty_s.items()))
+    ckpt = checkpoint.checkpoint_path(tr.logdir, CITY_STEPS, tr.tile_idxs[0])
+    ckpt_mib = os.path.getsize(ckpt) / 2**20
+    for f in os.listdir(tr.logdir):  # disk: drop the step-50 generation
+        if f.startswith("checkpoint-50-"):
+            os.remove(os.path.join(tr.logdir, f))
+
+    # --- the pruning query: one chunk on the card against the CPU, B3 timed
+    s0 = tr.states[0]
+    cpu_params = field.FieldParams(
+        features=s0.params.field.features.detach().cpu(),
+        decoder={n: {k: v.detach().cpu() for k, v in p.items()}
+                 for n, p in s0.params.field.decoder.items()})
+    cpu_fs = field.FieldState(**{k: getattr(s0.field_state, k).cpu() for k in
+                                 ("resolutions", "min_bbox", "bbox_size", "occupied_grid")})
+    finest = s0.field_state.resolutions[-1].cpu().numpy()
+    n_split, th = copy.copy(tr.pruning).next_at(CITY_STEPS)  # what _prune will apply
+    b3 = _pruning_query_check(s0, cpu_params, cpu_fs, finest, n_split, counters, field,
+                              occupancy, hw)
+
+    t0 = time.perf_counter()
+    tr._prune(CITY_STEPS)
+    torch.cuda.synchronize()
+    t_prune = time.perf_counter() - t0
+    locs, res, alpha = occupancy.cell_max_alpha(cpu_params, cpu_fs, CITY_STEPS, finest,
+                                                n_split, backend="windowed")
+    want = np.zeros(tuple(res), bool)
+    want[tuple(locs[alpha > th].T)] = True
+    card = tr.states[0].field_state.occupied_grid.cpu().numpy()
+    if card.shape != want.shape:
+        fail(f"city prune: the card's grid is {card.shape}, the CPU's {want.shape}")
+    differ = card != want
+    band = np.zeros(tuple(res), bool)
+    band[tuple(locs[np.abs(alpha - th) < CITY_PRUNE_BAND].T)] = True
+    print(f"city prune: {t_prune:.1f} s on the card for {len(tr.states)} tiles; tile 0 "
+          f"{len(locs)} cells queried at {tuple(int(r) for r in res)}, {int(want.sum())} kept on the CPU, "
+          f"{int(card.sum())} on the card, {int(differ.sum())} differ, {int(band.sum())} "
+          f"within {CITY_PRUNE_BAND} of the threshold {th}; occupied "
+          f"{[round(float(s.field_state.occupied_grid.float().mean()), 4) for s in tr.states]}")
+    if (differ & ~band).any():
+        fail(f"city prune: {int((differ & ~band).sum())} cells of tile 0's grid differ from "
+             f"the CPU prune away from the threshold")
+
+    # --- one more round on the pruned grids; its consensus against the CPU
+    before = [(s.admm.shared_se3.clone(), s.admm.delta_se3.clone()) for s in tr.states]
+    aux = tr.train_round()
+    x = torch.stack([s.params.se3_refine.detach() for s in tr.states]).cpu()
+    z, delta, ov, caux = consensus.consensus_update(
+        x, tr.confidence.cpu(), tr.cam_map.cpu(), torch.stack([b[0] for b in before]).cpu(),
+        torch.stack([b[1] for b in before]).cpu(), tr.states[0].admm.rho.cpu(),
+        tr.num_global_cams)
+    errs = {}
+    for name, ref, got in (("z", z, [s.admm.shared_se3 for s in tr.states]),
+                           ("delta", delta, [s.admm.delta_se3 for s in tr.states])):
+        got = torch.stack(got).cpu()
+        errs[name] = float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+    for k in ("primal_residual", "dual_residual"):  # absolute: the dual can be ~0
+        errs[k] = abs(float(getattr(aux, k)) - float(getattr(caux, k)))
+    n_ovl = int(aux.num_overlap)
+    same_ov = torch.equal(torch.stack([s.admm.overlap_flags for s in tr.states]).cpu(), ov)
+    print(f"city consensus (last round) card against CPU: errors (z, delta relative to "
+          f"their largest entry; residuals absolute) {errs} (tol {CITY_CONSENSUS_TOL}); "
+          f"residuals on the card {float(aux.primal_residual):.6g} / "
+          f"{float(aux.dual_residual):.6g}; overlap flags equal {same_ov}, {n_ovl} overlap "
+          f"slots")
+    if not (all(e <= CITY_CONSENSUS_TOL for e in errs.values()) and same_ov and n_ovl > 0):
+        fail("city consensus: the card's round differs from the plain consensus_update")
+    t0 = time.perf_counter()
+    tr._export()
+    print(f"city: the second _export {time.perf_counter() - t0:.1f} s")
+
+    # --- logs
+    log = open(os.path.join(tr.logdir, "training.log")).read().splitlines()
+    rounds = [line.split("\t") for line in log if "\tloss " in line]
+    losses = [float(r[1][5:]) for r in rounds]
+    admm = [line for line in open(os.path.join(tr.logdir, "admm_error.txt"))]
+    res_vals = [float(v.split(": ")[1]) for line in admm for v in line.strip().split("\t")]
+    n_rounds = CITY_STEPS // CITY_SYN + 1
+    print(f"city training.log rounds: {[(r[0], r[1]) for r in rounds]}")
+    print(f"city admm_error.txt: {[line.strip() for line in admm]}")
+    if not (len(rounds) == n_rounds and np.isfinite(losses).all()
+            and losses[CITY_STEPS // CITY_SYN - 1] < losses[0]):
+        fail(f"city: training.log has {len(rounds)} round lines (want {n_rounds}), finite "
+             f"{np.isfinite(losses).all()}, the run's last mean loss below its first "
+             f"{losses[CITY_STEPS // CITY_SYN - 1] if len(losses) >= 4 else None} < "
+             f"{losses[0] if losses else None}")
+    if not (len(admm) == n_rounds and np.isfinite(res_vals).all()):
+        fail(f"city: admm_error.txt has {len(admm)} lines (want {n_rounds}) or a non-finite "
+             f"residual")
+    if not (published and max(published) > 0):
+        fail(f"city: the occlusion refresh published no depth ({published})")
+    print(f"city occlusion refresh: ran {len(published)} times, shared depths {published}")
+    rise = {t: evals[CITY_STEPS][t][0] - evals[0][t][0] for t in evals[0]}
+    print(f"city eval PSNR rise step 0 -> {CITY_STEPS}: "
+          + ", ".join(f"tile {t} {r:+.4f} dB" for t, r in rise.items())
+          + f" (limit >= {CITY_MIN_PSNR_RISE})")
+    if not all(r >= CITY_MIN_PSNR_RISE for r in rise.values()):
+        fail("city: a tile's eval PSNR rose less than the limit")
+
+    # --- exports: files, and the renderer on them (B7)
+    tile_dirs = sorted(os.path.join(tr.logdir, d) for d in os.listdir(tr.logdir)
+                       if d.startswith("tile-"))
+    if len(tile_dirs) != len(tr.states) or not os.path.exists(
+            os.path.join(tr.logdir, "refined_camera.log")):
+        fail(f"city: exports {tile_dirs} and refined_camera.log not all written")
+    ex = checkpoint.load_tile_export(tile_dirs[0])
+    scene = renderer.load_scene(tile_dirs, device="cuda")
+    view = tr.test_idxs[tr.tile_idxs[0]][0]
+    li = list(ex["idxs"]).index(view)
+    t0 = time.perf_counter()
+    img = renderer.render_image(scene, ex["ks"][li], ex["c2ws"][li], CITY_HW, CITY_HW,
+                                device="cuda", num_sample=128, num_bg_sample=128,
+                                num_march=512)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    gt = tr.datas[0].images[li]
+    rgb = torch.tensor(img["rgb"], device="cuda")
+    train_img = tile.render_image(tr.states[0], tr.datas[0].cameras, li, CITY_HW, CITY_HW,
+                                  tr.tc, device="cuda")
+    ps_ex = float(metrics.psnr(rgb, gt))
+    ps_tr = float(metrics.psnr(torch.tensor(train_img["rgb"], device="cuda"), gt))
+    print(f"city export: {len(tile_dirs)} tiles ({ex['hash_layout']}), refined_camera.log; "
+          f"the renderer's render of view {view} (tile {tr.tile_idxs[0]}'s test view) from all "
+          f"{len(tile_dirs)} exports in {t_render:.2f} s: PSNR {ps_ex:.4f} dB, tile 0's "
+          f"training-side render {ps_tr:.4f} dB; checkpoint {ckpt_mib:.1f} MiB a tile")
+    if not (np.isfinite(img["rgb"]).all() and np.isfinite(ps_ex)):
+        fail("city export: the renderer's image is not finite")
+    got = {k: c.launches for k, c in counters.items()}
+    print(f"city launches: {json.dumps(got)}")
+    for k, n in got.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched in the city phase")
+    return got, b3
+
+
+def _pruning_query_check(state, cpu_params, cpu_fs, finest, n_split, counters, field,
+                         occupancy, hw):
+    """The first chunk of tile 0's pruning query at the next rung:
+    ``field_inference_sigma`` through B2 and B3 on the card against the
+    plain gather on the CPU; B3 captured there and timed at that shape.
+    These launches are restored out of the phase's counts."""
+    saved = {k: c.launches for k, c in counters.items()}
+    _, res, corners, lattice = occupancy.query_lattice(
+        state.field_state.occupied_grid.cpu().numpy(), CITY_STEPS, finest, n_split)
+    pts = torch.from_numpy((corners[:4096, None, :] + lattice[None]) * 2.0 - 1.0)
+    step = torch.tensor(float(CITY_STEPS))
+    args = {}
+    fwd = hw.lookup_fwd
+
+    def capture(*a, **kw):
+        args.setdefault("a", a)
+        return fwd(*a, **kw)
+
+    capture.launches = 0
+    hw.lookup_fwd = capture
+    try:
+        card = field.field_inference_sigma(state.params.field, state.field_state,
+                                           pts.cuda(), step.cuda(), backend="windowed").cpu()
+    finally:
+        hw.lookup_fwd = fwd
+    plain = field.field_inference_sigma(cpu_params, cpu_fs, pts, step, backend="windowed")
+    err, scale = float((card - plain).abs().max()), float(plain.abs().max())
+    a = args["a"]
+    ptsk, meta, table, resl, NW = a
+    f_k = hw.lookup_fwd(*a)
+    f_p = hw.lookup_fwd_plain(ptsk, table, resl, NW)
+    err_b3 = float((f_k - f_p).abs().max())
+    live = meta[:, :, 2].sum(dim=1) > 0
+    visited = int(torch.unique(meta[live, 0, 0]).numel())
+    real_rows = int((ptsk[:, 3, :] < NW).sum())
+    row = dict(points=int(pts.shape[0] * pts.shape[1]), chunks=int(ptsk.shape[0]),
+               live_chunks=int(live.sum()), visited_blocks=visited,
+               max_abs_err=err_b3, ms=timed(lambda: hw.lookup_fwd(*a), 20),
+               plain_ms=timed(lambda: hw.lookup_fwd_plain(ptsk, table, resl, NW), 1),
+               bytes=(ptsk[:, 0:4].numel() * 4 + meta.numel() * 4 + f_k.numel() * 4
+                      + visited * LEVELS * hw.WB * hw.W * 2 * 4),
+               ops=real_rows * LEVELS * 8 * 6)
+    for k, c in counters.items():
+        c.launches = saved[k]
+    print(f"city pruning query, one chunk of {pts.shape[0]} cells x {pts.shape[1]} points at "
+          f"the {tuple(int(r) for r in res)} rung: field_inference_sigma on the card against the CPU max err "
+          f"{err:.3g}, largest entry {scale:.3g} (tol {CITY_SIGMA_TOL} of it); B3 at this shape "
+          f"({row['chunks']} chunks, {row['live_chunks']} live, {visited} visited blocks, "
+          f"{real_rows} real rows): max err {err_b3:.3g} against its plain version, "
+          f"{row['ms']:.4f} ms (plain {row['plain_ms']:.3f})")
+    if not (torch.isfinite(card).all() and err <= CITY_SIGMA_TOL * scale
+            and err_b3 <= CITY_SIGMA_TOL * float(f_p.abs().max())):
+        fail("city: the pruning query on the card differs from its plain version")
+    return row
 
 
 def print_ptxas(lib: str, log: str) -> None:
@@ -1504,6 +1878,7 @@ def main() -> None:
     rows += train_rows
     print(f"phase train: {time.perf_counter() - t1:.1f} s; total {time.perf_counter() - t_start:.1f} s")
     tile_phase()
+    city = city_phase()
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def bound(r):
@@ -1515,6 +1890,12 @@ def main() -> None:
 
     for r in rows:
         bound(r)
+    # each kernel's launches in the city phase beside the counted runs
+    # and B3 at the pruning query's shape
+    by_name = {r["name"]: r for r in rows}
+    for k, n in city["launches"].items():
+        by_name[CITY_KIND[k]]["city_launches"] = n
+    by_name["hash_lookup_fwd"]["pruning_query"] = bound(dict(city["b3"]))
     # B1's row: the render chunk's numbers, all its launches, and each
     # training shape's launches and times beside them
     b1 = rows[0]

@@ -193,11 +193,30 @@ def train_state(jax_state, device="cuda") -> tile_lib.TrainState:
     ``set_to_zero``): its optimizer is built as ``build_optimizer`` builds
     it then, with no camera group."""
     _device.resolve(device)
+    return state_from_arrays(lambda key: np.asarray(_resolve(jax_state, key)),
+                             _cam_enabled(jax_state), device)
+
+
+def _cam_enabled(jax_state) -> bool:
+    """Whether a JAX state holds an Adam state for the cameras (not under
+    optax's ``set_to_zero``, whose chain is empty)."""
     try:
         _resolve(jax_state, _chain("cam", "adam") + "/.count")
-        cam_enable = True
-    except (IndexError, TypeError):  # set_to_zero's empty chain
-        cam_enable = False
-    return state_from_arrays(lambda key: np.asarray(_resolve(jax_state, key)),
-                             cam_enable, device)
+        return True
+    except (IndexError, TypeError):
+        return False
 
+
+def parallel_tiles(jax_tiles, device="cuda"):
+    """A JAX ``ParallelTiles`` (every tile's state stacked on a leading
+    axis, ``cam_map`` and ``confidence`` [T, M]) as the port holds tiles
+    on one card: (a list of ``TrainState``s, each as ``train_state`` reads
+    it; cam_map int32 [T, M]; confidence f32 [T, M]), on ``device``."""
+    dev = _device.resolve(device)
+    stacked = jax_tiles.state
+    cam_enable = _cam_enabled(stacked)
+    cam_map = np.asarray(jax_tiles.cam_map)
+    states = [state_from_arrays(lambda key, t=t: np.asarray(_resolve(stacked, key))[t],
+                                cam_enable, dev) for t in range(cam_map.shape[0])]
+    return (states, torch.tensor(cam_map, dtype=torch.int32, device=dev),
+            torch.tensor(np.asarray(jax_tiles.confidence, np.float32), device=dev))

@@ -1,4 +1,4 @@
-"""Per-tile neural field: windowed hash tables + ShallowMLP + occupancy grid
+"""Per-tile neural field: hash tables + ShallowMLP + occupancy grid
 (counterpart of ``scanerf_tpu/models/field.py``), for training.
 
 Semantics kept from the JAX package: the tile bbox is doubled to hold a
@@ -7,16 +7,26 @@ maps the inner bbox to [-1, 1], the bg contraction is the L-infinity
 mip360 squash over [-2, 2]; BARF anneals the 16 levels with
 alpha(step) = clip(step / 10000 * 8 + 8, 0, 16); fg samples follow the
 occupancy grid over the inner bbox, bg samples are inverse-z beyond the
-doubled bbox. Invalid rays are masked, not compressed.
+doubled bbox, or, in BS mode, a window around the proxy mesh's depth
+(``bg_z``). Invalid rays are masked, not compressed.
 
-``render_rays`` runs the windowed sorted-stream path: the fg and bg
-points of all rays form one stream (``sort_pack``, B2), which the fused
-hash + decoder kernels decode (B5 forward, B6 backward; the default) or,
-with ``fused_decoder=False``, the hash lookup (B3 forward, B4 backward)
-followed by the ShallowMLP in PyTorch (``torch.matmul``, as the JAX
-package leaves it to XLA); only the 8 columns return to ray order.
-Options of the JAX function that need what the port does not have yet
-raise ``NotImplementedError`` naming their ROADMAP item.
+``render_rays`` runs one of two backends, resolved by
+``effective_backend`` from the requested one and the table size:
+
+- ``windowed`` (the production path): the fg and bg points of all rays
+  form one sorted stream (``sort_pack``, B2), which the fused hash +
+  decoder kernels decode (B5 forward, B6 backward; the default) or, with
+  ``fused_decoder=False``, the hash lookup (B3 forward, B4 backward)
+  followed by the ShallowMLP in PyTorch (``torch.matmul``, as the JAX
+  package leaves it to XLA); only the 8 columns return to ray order.
+- ``xla``, the global prime-XOR hash (``ops/hash_encode.py``) of tables
+  under 2^14 entries or of ``backend="xla"``: the fg and bg passes
+  (``render_fore_rays`` / ``render_bg_rays``) each encode their points
+  and decode them in PyTorch, as the JAX package does in XLA.
+
+``field_inference_sigma`` is the density query of occupancy pruning, in
+either layout. Options of the JAX function that need what the port does
+not have yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -110,6 +120,18 @@ def inner_size(state: FieldState) -> torch.Tensor:
     return state.bbox_size / 2.0
 
 
+def effective_backend(backend: str, H: int) -> str:
+    """The hash backend of a table of H entries: the windowed layout needs
+    at least one 32-window block of 512 entries, so smaller tables take
+    the global hash. Pruning and export resolve the backend the same way,
+    so that the table is always read with the hash it was trained with."""
+    if backend not in ("xla", "windowed"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "windowed" and H < hw.W * hw.WB:
+        return "xla"
+    return backend
+
+
 def contract_fore(state: FieldState, x: torch.Tensor) -> torch.Tensor:
     """Inner bbox -> [-1, 1]."""
     return (x - state.min_bbox) / state.bbox_size * 4.0 - 2.0
@@ -180,25 +202,83 @@ def _compose_fg_bg(fg: dict, bg: dict, rays_o, rays_d, train: bool) -> dict:
     return out
 
 
-def _check_options(H, backend, table_shards, bwd_onehot_bf16, stochastic_grad, bg_z):
-    if backend not in ("xla", "windowed"):
-        raise ValueError(f"unknown backend {backend!r}")
-    if backend == "xla" or H < hw.W * hw.WB:
-        raise NotImplementedError(
-            "the global-hash backend (backend='xla', tables below 2^14 entries) "
-            "is not ported yet: ROADMAP.md queue A, item 'Hash encoders'")
+def _check_options(table_shards, bwd_onehot_bf16, stochastic_grad):
     if table_shards > 1:
         raise NotImplementedError("sharded tables are not ported yet: ROADMAP.md "
                                   "queue A, item 'Multi-device and opt-in knobs'")
     if stochastic_grad:
-        raise NotImplementedError("the stochastic-corner gradient belongs to the "
-                                  "global-hash backend: ROADMAP.md queue A, item "
-                                  "'Multi-device and opt-in knobs'")
+        raise NotImplementedError("the stochastic-corner gradient is not ported yet: "
+                                  "ROADMAP.md queue A, item 'Multi-device and opt-in "
+                                  "knobs'")
     if bwd_onehot_bf16:
         raise NotImplementedError("hash_bwd_bf16 is not ported: ROADMAP.md queue A, "
                                   "item 'Multi-device and opt-in knobs'")
-    if bg_z is not None:
-        sampling.background_window_sampling()
+
+
+def render_batch_rays(params: FieldParams, state: FieldState, rays_o, rays_d, z_vals,
+                      dists, valid, step: torch.Tensor, contract, infinity: bool,
+                      train: bool) -> dict:
+    """One pass of the global-hash backend: the samples z_vals / dists
+    [N, S] of rays [N, 3], masked by ``valid`` [N] (invalid rays
+    contribute nothing and keep T_left 1), contracted by ``contract``,
+    encoded by ``hash_encode`` and decoded in PyTorch."""
+    N, S = z_vals.shape
+    zero = torch.zeros((), device=rays_o.device)
+    z = torch.where(valid[:, None], z_vals, zero)
+    d = torch.where(valid[:, None], dists, zero)
+    x = contract(state, (rays_o[:, None, :] + z[..., None] * rays_d[:, None, :])
+                 .reshape(-1, 3))
+    feats = hash_encode.hash_encode(x, params.features, state.resolutions)
+    dirs = rays_d[:, None, :].expand(N, S, 3).reshape(-1, 3)
+    cols = decode_columns(params.decoder, feats, dirs, weight_feature(step))
+    return _composite_premul(_as_parts(cols, N, S), z, d, rays_d, valid,
+                             infinity=infinity, train=train)
+
+
+def render_fore_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
+                     num_sample: int, step: torch.Tensor, occlusion_mask=None,
+                     train: bool = True, num_march: int = 512) -> dict:
+    """The global-hash foreground pass: occupancy-CDF samples (B1 on the
+    card) over the inner bbox."""
+    z_vals, dists, valid = sampling.sample_points_grid(
+        rays_o, rays_d, num_sample, state.occupied_grid, inner_corner(state),
+        inner_size(state), num_march=num_march)
+    if occlusion_mask is not None:
+        valid = valid & occlusion_mask
+    out = render_batch_rays(params, state, rays_o, rays_d, z_vals, dists, valid, step,
+                            contract_fore, infinity=False, train=train)
+    out["fore_valid"] = valid
+    return out
+
+
+def render_bg_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
+                   num_sample: int, step: torch.Tensor, occlusion_mask=None,
+                   train: bool = True, invalid_underground: bool = False,
+                   bg_z=None) -> dict:
+    """The global-hash background pass: inverse-z samples beyond the
+    doubled bbox, or the BS-mode samples ``bg_z`` = (z, dists, valid)."""
+    z_vals, dists, valid = bg_z if bg_z is not None else _bg_samples(
+        state, rays_o, rays_d, num_sample, invalid_underground)
+    if occlusion_mask is not None:
+        valid = valid & occlusion_mask
+    out = render_batch_rays(params, state, rays_o, rays_d, z_vals, dists, valid, step,
+                            contract_bg, infinity=True, train=train)
+    out["bg_valid"] = valid
+    return out
+
+
+def _bg_samples(state, rays_o, rays_d, num_sample, invalid_underground):
+    return sampling.inverse_z_sampling(
+        rays_o, rays_d, num_sample, state.min_bbox + state.bbox_size / 2.0,
+        state.bbox_size, invalid_underground=invalid_underground)
+
+
+def _as_parts(cols, B, S):
+    """The 8 decoded columns of B rays x S samples as the composite's parts."""
+    return {"sigma": cols[:, 0:1].reshape(B, S, 1),
+            "diffuse": cols[:, 1:4].reshape(B, S, 3),
+            "tintspec": cols[:, 4:7].reshape(B, S, 3),
+            "spec2": cols[:, 7:8].reshape(B, S, 1)}
 
 
 def render_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
@@ -208,23 +288,43 @@ def render_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
                 backend: str = "windowed", table_shards: int = 1,
                 bwd_onehot_bf16: bool = False, fused_decoder: bool = True,
                 compact_dead: bool = True, stage_hook=None) -> dict:
-    """fg + bg render of rays [N, 3] (unnormalized directions) through the
-    windowed sorted stream, with the fused decoder or, for
-    ``fused_decoder=False``, the lookup then the decoder. ``step`` is an f32
-    scalar tensor (BARF annealing). ``stage_hook(name)``, when given, is
-    called after each stage (sample, sort_pack, decode, unsort, composite)
-    for timing. Differentiable in the field's params and in rays_o /
-    rays_d (through the sample positions and view dirs)."""
-    H = params.features.shape[1] // N_FEATURES
-    _check_options(H, backend, table_shards, bwd_onehot_bf16, stochastic_grad, bg_z)
+    """fg + bg render of rays [N, 3] (unnormalized directions). The
+    windowed backend decodes one sorted stream, with the fused decoder or,
+    for ``fused_decoder=False``, the lookup then the decoder; the xla
+    backend (and any table under 2^14 entries) runs the fg and bg passes
+    of the global hash. ``step`` is an f32 scalar tensor (BARF annealing).
+    ``bg_z`` = (z, dists, valid) replaces the inverse-z background samples
+    (BS mode). ``stage_hook(name)``, when given, is called after each stage
+    of the windowed path (sample, sort_pack, decode, unsort, composite) for
+    timing. Differentiable in the field's params and in rays_o / rays_d
+    (through the sample positions and view dirs)."""
+    _check_options(table_shards, bwd_onehot_bf16, stochastic_grad)
+    backend = effective_backend(backend, hash_encode.table_rows(params.features))
+    if backend == "windowed":
+        return _render_rays_windowed(params, state, rays_o, rays_d, num_fg_sample,
+                                     num_bg_sample, step, occlusion_mask, train,
+                                     invalid_underground, num_march, bg_z, fused_decoder,
+                                     compact_dead, stage_hook)
+    fg = render_fore_rays(params, state, rays_o, rays_d, num_fg_sample, step,
+                          occlusion_mask=occlusion_mask, train=train, num_march=num_march)
+    bg = render_bg_rays(params, state, rays_o, rays_d, num_bg_sample, step,
+                        occlusion_mask=occlusion_mask, train=train,
+                        invalid_underground=invalid_underground, bg_z=bg_z)
+    return _compose_fg_bg(fg, bg, rays_o, rays_d, train)
+
+
+def _render_rays_windowed(params, state, rays_o, rays_d, num_fg_sample, num_bg_sample,
+                          step, occlusion_mask, train, invalid_underground, num_march,
+                          bg_z, fused_decoder, compact_dead, stage_hook) -> dict:
+    """``render_rays`` through the windowed sorted stream."""
+    H = hash_encode.table_rows(params.features)
     B = rays_o.shape[0]
     Sf, Sb = num_fg_sample, num_bg_sample
     zf, df, vf = sampling.sample_points_grid(
         rays_o, rays_d, Sf, state.occupied_grid, inner_corner(state), inner_size(state),
         num_march=num_march)
-    zb, db, vb = sampling.inverse_z_sampling(
-        rays_o, rays_d, Sb, state.min_bbox + state.bbox_size / 2.0, state.bbox_size,
-        invalid_underground=invalid_underground)
+    zb, db, vb = bg_z if bg_z is not None else _bg_samples(
+        state, rays_o, rays_d, Sb, invalid_underground)
     if occlusion_mask is not None:
         vf = vf & occlusion_mask
         vb = vb & occlusion_mask
@@ -263,22 +363,37 @@ def render_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
     rows = hw.unsort_rows(cols, stream.pidp, x.shape[0])
     _mark(stage_hook, "unsort")
 
-    def as_parts(part, S):
-        return {"sigma": part[:, 0:1].reshape(B, S, 1),
-                "diffuse": part[:, 1:4].reshape(B, S, 3),
-                "tintspec": part[:, 4:7].reshape(B, S, 3),
-                "spec2": part[:, 7:8].reshape(B, S, 1)}
-
     Nf = B * Sf
-    fg = _composite_premul(as_parts(rows[:Nf], Sf), zfm, dfm, rays_d, vf,
+    fg = _composite_premul(_as_parts(rows[:Nf], B, Sf), zfm, dfm, rays_d, vf,
                            infinity=False, train=train)
-    bg = _composite_premul(as_parts(rows[Nf:], Sb), zbm, dbm, rays_d, vb,
+    bg = _composite_premul(_as_parts(rows[Nf:], B, Sb), zbm, dbm, rays_d, vb,
                            infinity=True, train=train)
     fg["fore_valid"] = vf
     bg["bg_valid"] = vb
     out = _compose_fg_bg(fg, bg, rays_o, rays_d, train)
     _mark(stage_hook, "composite")
     return out
+
+
+def field_inference_sigma(params: FieldParams, state: FieldState, samples,
+                          step: torch.Tensor, backend: str = "xla") -> torch.Tensor:
+    """Density of points ``samples`` [..., 3] in contract space under the
+    BARF weights of ``step`` -> [..., 1], for pruning. ``backend`` must be
+    the layout the table was trained with (``effective_backend``): read
+    through the other hash, a table gives garbage densities. The windowed
+    layout goes through ``hash_encode_windowed`` (B2, B3) for CUDA tensors
+    and through its plain gather for CPU tensors."""
+    x = samples.reshape(-1, 3)
+    if backend == "windowed":
+        encode = hw.hash_encode_windowed if x.is_cuda else hw.hash_encode_windowed_ref
+    elif backend == "xla":
+        encode = hash_encode.hash_encode
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    feats = encode(x, params.features, state.resolutions)
+    wf = weight_feature(step).repeat_interleave(2)
+    sig = decoder_lib.inference_sigma(params.decoder, feats * wf)
+    return sig.reshape(*samples.shape[:-1], 1)
 
 
 def _mark(hook, name: str) -> None:

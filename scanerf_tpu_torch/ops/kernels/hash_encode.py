@@ -46,13 +46,12 @@ import numpy as np
 import torch
 
 from scanerf_tpu_torch import _build
+from scanerf_tpu_torch.ops.hash_encode import CORNERS, MASK32, PRIMES, as_3d
 
-PRIMES = (1, 2654435761, 805459861)
 W = 512  # entries per window
 WB = 32  # windows per block
 CHUNK = 1024  # stream rows per chunk
 SUBT = CHUNK // 128  # 128-row subtiles per chunk (rows of ``meta``)
-_MASK32 = 0xFFFFFFFF
 
 
 @functools.cache
@@ -86,14 +85,10 @@ def window_id(u: torch.Tensor, H: int) -> torch.Tensor:
 def slot_hash(ix, iy, iz) -> torch.Tensor:
     """In-window slot [0, 512) of integer corner coords. The uint32 wrap of
     the reference is done in int64 with a 32-bit mask."""
-    h = ((ix * PRIMES[0]) & _MASK32) ^ ((iy * PRIMES[1]) & _MASK32) \
-        ^ ((iz * PRIMES[2]) & _MASK32)
+    h = ((ix * PRIMES[0]) & MASK32) ^ ((iy * PRIMES[1]) & MASK32) \
+        ^ ((iz * PRIMES[2]) & MASK32)
     h = h ^ (h >> 9) ^ (h >> 18)
     return h & (W - 1)
-
-
-_CORNERS = np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
-                    -1).reshape(8, 3)  # x-major: 000 001 ... 111
 
 
 def _level_corners(u, wid, res_l):
@@ -102,12 +97,12 @@ def _level_corners(u, wid, res_l):
     into the level's [nW*512, F] table [N, 8] and their per-axis trilinear
     factors [N, 8, 3], whose product over the axes is the corner's
     weight."""
-    corners = torch.as_tensor(_CORNERS, device=u.device)
+    corners = torch.as_tensor(CORNERS, device=u.device)
     cf = corners.to(u.dtype)
     v = u * (res_l.to(u.dtype) - 1.0)
     bl = torch.floor(v)
     off = v - bl
-    ic = (bl.to(torch.int64) & _MASK32)[:, None, :] + corners[None]
+    ic = (bl.to(torch.int64) & MASK32)[:, None, :] + corners[None]
     idx = wid[:, None] * W + slot_hash(ic[..., 0], ic[..., 1], ic[..., 2])
     return idx, cf[None] * off[:, None, :] + (1 - cf[None]) * (1 - off[:, None, :])
 
@@ -116,8 +111,6 @@ def encode_rows(u, wid, features, resolutions) -> torch.Tensor:
     """Windowed hash features of rows u [N, 3] in [0, 1]^3 whose window
     ids ``wid`` [N] index the windows of ``features`` (flat [L, nW*512*F]
     or [L, nW*512, F], f32 or bf16, widened to f32) -> [N, L*F] f32."""
-    from scanerf_tpu_torch.ops.hash_encode import as_3d
-
     features = as_3d(features)
     L, _, F = features.shape
     wid = wid.to(torch.int64)
@@ -134,8 +127,6 @@ def hash_encode_windowed_ref(points, features, resolutions) -> torch.Tensor:
     """Gather implementation of the windowed hash: points [N, 3] in
     [-2, 2], one tile's features [L, H, F] or flat [L, H*F] (f32 or
     bf16, widened to f32), resolutions [L, 3] -> [N, L*F] f32."""
-    from scanerf_tpu_torch.ops.hash_encode import as_3d
-
     u = (points + 2.0) * 0.25
     return encode_rows(u, window_id(u, as_3d(features).shape[1]), features,
                        resolutions)
@@ -388,13 +379,11 @@ def lookup_bwd_plain(pts, features, resolutions, g, NW: int):
     per level and corner, the derivative of the weight along each axis
     times (resolution - 1) times the cotangent's dot with the corner's
     features."""
-    from scanerf_tpu_torch.ops.hash_encode import as_3d
-
     f3 = as_3d(features)
     L = f3.shape[0]
     u, wid, real = _stream_rows(pts, NW)
     g3 = torch.where(real[:, None], g, torch.zeros_like(g)).reshape(-1, L, 2)
-    sign = 2.0 * torch.as_tensor(_CORNERS, device=u.device).to(u.dtype) - 1.0  # [8, 3]
+    sign = 2.0 * torch.as_tensor(CORNERS, device=u.device).to(u.dtype) - 1.0  # [8, 3]
     d3 = torch.zeros(f3.shape, dtype=torch.float32, device=u.device)
     du = torch.zeros_like(u)
     for lvl in range(L):
@@ -547,8 +536,6 @@ def hash_encode_windowed(points, features, resolutions) -> torch.Tensor:
     -> ``unsort_rows``): points [N, 3] in [-2, 2], one table flat [L, H*2]
     or [L, H, 2] (H a power of two >= 2^14), resolutions [L, 3] ->
     [N, L*2] f32, differentiable in points and f32 tables."""
-    from scanerf_tpu_torch.ops.hash_encode import as_3d
-
     N = points.shape[0]
     L, H, _ = as_3d(features).shape
     stream = sort_pack(points, torch.zeros_like(points), H)

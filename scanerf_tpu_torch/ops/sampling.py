@@ -5,7 +5,8 @@ candidate segments over the ray's span of the grid box, weight them by
 occupancy, and invert the CDF of occupied length at ``num_sample``
 left-edge quantiles (``cdf_sample_from_bounds``: the plain version on the
 CPU, kernel B1 on the card). Background: inverse-depth samples beyond the
-doubled tile box. Like the reference's no-grad samplers, z and dists carry
+doubled tile box, or (BS mode) a window around the proxy mesh's depth.
+Like the reference's no-grad samplers, z and dists carry
 no gradient: the pose reaches the samples only through o + z d and the
 view directions.
 """
@@ -64,10 +65,24 @@ def sample_points_grid(rays_o, rays_d, num_sample: int, grid, grid_corner,
             torch.where(valid[:, None], dists, neg), valid)
 
 
-def background_window_sampling(*args, **kwargs):
-    raise NotImplementedError(
-        "mesh-guided background sampling (BG_MODE 'BS') is not ported yet: "
-        "ROADMAP.md queue A, item 'BS background mode'")
+@torch.no_grad()
+def background_window_sampling(rays_o, rays_d, bg_depth, bbox_center, bbox_size,
+                               num_sample: int, sample_range):
+    """BS-mode background samples: ``num_sample`` evenly spaced z over a
+    window of ``sample_range`` from max(the doubled bbox's exit, bg_depth
+    - range / 2), where ``bg_depth`` [N] is the proxy mesh's depth behind
+    the tile (0 = none; ``geometry/mesh_engine.py``). Rays without one, or
+    that miss the bbox, are invalid: z -1, valid False. The last dist is
+    1e-6."""
+    bounds = ray_aabb(rays_o, rays_d, bbox_center, bbox_size / 2.0)
+    t_exit = bounds[:, 1]
+    valid = (t_exit != -1.0) & (bg_depth > 0)
+    start = torch.maximum(t_exit, bg_depth - sample_range / 2.0)
+    i = torch.arange(num_sample, dtype=rays_o.dtype, device=rays_o.device)
+    z_vals = start[:, None] + i[None, :] * (sample_range / num_sample)
+    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                       torch.full_like(z_vals[:, :1], 1e-6)], dim=-1)
+    return torch.where(valid[:, None], z_vals, torch.full_like(z_vals, -1.0)), dists, valid
 
 
 @torch.no_grad()

@@ -38,6 +38,7 @@ from scanerf_tpu_torch import _device
 from scanerf_tpu_torch.models import decoder as decoder_lib
 from scanerf_tpu_torch.models import field as field_lib
 from scanerf_tpu_torch.models.field import FieldParams, FieldState
+from scanerf_tpu_torch.ops import sampling
 from scanerf_tpu_torch.train import cameras as cam_lib
 from scanerf_tpu_torch.train import losses
 from scanerf_tpu_torch.train.cameras import Cameras
@@ -51,8 +52,9 @@ class TrainConfig:
     ``from_cfg`` does not read (config keys ``TRAINING.PERMUTE_MODE`` and
     ``RUN_CAP_FRAC``: bitwise-equal ways of sorting the stream on a TPU).
     ``hash_backend`` defaults to "windowed", the production path (the JAX
-    dataclass defaults to "xla" for its CPU oracles; the port's
-    global-hash backend is not ported yet). Options the port does not
+    dataclass defaults to "xla", the global hash, for its CPU oracles;
+    tables under 2^14 entries take the global hash either way). Options
+    the port does not
     have raise ``NotImplementedError`` in the step."""
 
     num_sample: int = 128
@@ -167,14 +169,16 @@ class TrainState:
 
 @dataclasses.dataclass
 class TileData:
-    """Per-tile training data, on the device. (The JAX ``bg_depths`` of
-    BG_MODE "BS" waits for that mode.)"""
+    """Per-tile training data, on the device."""
 
     images: torch.Tensor  # [N, H, W, 3] f32
     occlusions: torch.Tensor  # [N, H, W] bool
     cameras: Cameras
     mono_depths: torch.Tensor  # [N, H, W]
     mono_normals: torch.Tensor  # [N, H, W, 3]
+    # the proxy mesh's depth behind the tile, per pixel (0 = none), for
+    # BG_MODE "BS" (``ProxyMesh.compute_bgdepth_batch``); None in IZ mode
+    bg_depths: torch.Tensor | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -271,9 +275,6 @@ def _check_device(t: torch.Tensor, device) -> torch.device:
 
 
 def _check_config(tc: TrainConfig):
-    if tc.bg_mode != "IZ":
-        raise NotImplementedError("BG_MODE 'BS' (mesh-guided background) is not "
-                                  "ported yet: ROADMAP.md queue A, item 'BS background mode'")
     if tc.ray_shards > 1:
         raise NotImplementedError("ray sharding is not ported yet: ROADMAP.md queue A, "
                                   "item 'Multi-device and opt-in knobs'")
@@ -305,10 +306,16 @@ def compute_losses(params: TileParams, field_state: FieldState, admm: AdmmState,
     rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
     gt_color = data.images.reshape(N_cam, H * W, 3)[:, ray_idx].reshape(-1, 3)
     occl = data.occlusions.reshape(N_cam, H * W)[:, ray_idx].reshape(-1)
+    bg_z = None
+    if tc.bg_mode == "BS" and data.bg_depths is not None:
+        bgd = data.bg_depths.reshape(N_cam, H * W)[:, ray_idx].reshape(-1)
+        bg_z = sampling.background_window_sampling(
+            rays_o, rays_d, bgd, field_state.min_bbox + field_state.bbox_size / 2.0,
+            field_state.bbox_size, tc.num_bg_sample, field_state.bbox_size.max() / 10.0)
 
     out = _render(params.field, field_state, rays_o, rays_d, tc.num_sample,
                   tc.num_bg_sample, stepf, tc, occlusion_mask=occl, train=True,
-                  num_march=tc.num_march, stage_hook=stage_hook)
+                  num_march=tc.num_march, bg_z=bg_z, stage_hook=stage_hook)
     valid = out["fore_valid"] | out["bg_valid"]
     aux = {}
     loss = tc.l2_specular_weight * out["l2_reg_specular"]
@@ -493,9 +500,10 @@ def render_chunk(params: TileParams, field_state: FieldState, rays_o, rays_d, st
 
 
 def _render_rays_chunked(state: TrainState, rays_o, rays_d, tc, chunk, keys, device):
-    """``render_chunk`` over rays in chunks (the last one padded with rays
-    of direction 1) -> {key: numpy [n, ...]}."""
+    """``render_chunk`` over rays in chunks of at most ``chunk`` (the last
+    one padded with rays of direction 1) -> {key: numpy [n, ...]}."""
     n = rays_o.shape[0]
+    chunk = min(chunk, n)
     pad = (-n) % chunk
     rays_o = torch.nn.functional.pad(rays_o, (0, 0, 0, pad))
     rays_d = torch.nn.functional.pad(rays_d, (0, 0, 0, pad), value=1.0)

@@ -611,9 +611,8 @@ def test_train_entry_points_need_cuda_and_unported_options_raise():
         convert.train_state(_tiny_jax_state(jtile.TrainConfig(), n_cam=2))
     o = torch.zeros(4, 3)
     d = torch.ones(4, 3)
-    for kw in (dict(backend="xla"), dict(table_shards=2),
-               dict(stochastic_grad=True), dict(bwd_onehot_bf16=True),
-               dict(bg_z=(o, o, o))):
+    for kw in (dict(table_shards=2), dict(stochastic_grad=True),
+               dict(bwd_onehot_bf16=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfield.render_rays(params, fs, o, d, 4, 4, torch.tensor(0.0), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
