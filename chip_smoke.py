@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Four phases, driven through the port's entry points, with the kernels'
+Five phases, driven through the port's entry points, with the kernels'
 launch counts set to 0 just before each counted run and read just after:
 render and training, each in both decoder configurations, fused (the
 default) and unfused (slice 3: ``fuse_decoder=False`` /
 ``fused_decoder=False``); then one tile from a scene directory to an
-export; then a city of tiles through the multi-tile ADMM trainer.
+export; then a city of tiles through the multi-tile ADMM trainer; then
+serving the city's exports.
 
 Render (slice 1). Builds the port's CUDA kernels from csrc/, writes a
 4-tile scene in the reference export layout (16 levels x 2 features, H =
@@ -100,14 +101,39 @@ image finite. It prints each round's seconds and training rays/s, the
 phase's launches ("city launches:"), seconds, checkpoint size and peak
 device memory.
 
+Serve (slice 9), on the city phase's directory and four exports before
+it is removed: the render CLI's ``main`` (``python -m
+scanerf_tpu_torch.render``) in VAL mode over views 0-7 at 128x128 (each
+metric.txt PSNR within the bounds that the 8-bit truncation of its
+frame allows around the frame's PSNR on the CPU, SSIM within 0.01; the
+mean at least 2 dB above the city's highest step-0 eval PSNR;
+``evaluate_dirs`` on the frames equal to the CPU's within 1e-4), view
+0 staged (``backend="xla"``: B2 + B3 on the table stack, the decoder in
+PyTorch) against windowed on all-occupied grids (the tiles' own grids
+are not aligned, and the two backends gate samples by different grids;
+the gap with them is printed), a ``pose_paths`` path between two city
+cameras and two 720x1280 DEMO frames, one CLI call each, frame 1 again
+with SCANERF_EARLY_TERM=1 (within one 8-bit step) and through
+``render_image(early_term=True)`` against the one-shot frame (rgb 1e-4,
+depth 1e-3), and early termination on the render phase's scene with
+every sigma head's bias raised by 50, which must shed fg and bg rows.
+Launches are read there ("serve launches:"); then B7 at an
+early-termination slab's shape and B3 at the staged encode's against
+their plain versions, 256 rays of the staged render on the card against
+the CPU, and LPIPS with random weights on a frame and its ground truth
+on the card (with cuDNN's TF32 switched on around the call, which LPIPS
+must switch off) against the CPU (1e-5 relative).
+
 It prints the card's name and power limit (nvidia-smi), each phase's
 seconds, and, before the last line, one JSON line ``{"kernels": [...]}``
 with B1-B7: per kernel, its launches in the counted runs, max error
 against the plain version, times, and the bound (least time the card
 could take for the same work); B1's row also has its kernel's time alone
 and each training shape's numbers, every row its launches in the city
-phase (``city_launches``), and B3's row its numbers at the pruning
-query's shape (``pruning_query``). The last line is ``{"ok": true,
+phase (``city_launches``) and in the serve phase (``serve_launches``),
+B3's row its numbers at the pruning query's shape (``pruning_query``)
+and at the staged encode's (``staged``), and B7's at an
+early-termination slab's (``early_slab``). The last line is ``{"ok": true,
 "device": {...}}``.
 
 Any failed build, launch or comparison ends the script with a non-zero
@@ -1192,7 +1218,7 @@ CITY_SIGMA_TOL = 1e-5
 CITY_PRUNE_BAND = 1e-4
 
 
-def city_phase() -> dict:
+def city_phase(serve=None) -> dict:
     """The port's ``Trainer`` on a city scene directory, on the card:
     ``write_city_scene_dir`` (2 x 2 tiles, 96 cameras at 128x128; tile
     boxes at resolution (32, 2048), raised 0.2 so that the drone path
@@ -1203,7 +1229,9 @@ def city_phase() -> dict:
     ladder's next rung (64^3 -> 128^3), one more round on the pruned
     grids and ``_export``; the exports rendered by the renderer (B7).
     Returns the phase's launches of each kernel and B3's numbers at the
-    pruning query's shape."""
+    pruning query's shape; ``serve(root, trainer, evals)``, when given,
+    runs on the city's directory and exports before it is removed, and
+    its result comes back under "serve"."""
     from scanerf_tpu_torch.config import default_config
     from scanerf_tpu_torch.data import io as dio
     from scanerf_tpu_torch.data.city import write_city_scene_dir
@@ -1242,16 +1270,20 @@ def city_phase() -> dict:
         return out
 
     tp.admm_round = timed_round
+    served = None
     try:
         with tempfile.TemporaryDirectory() as root:
-            got, b3 = _city_run(root, counters, rays_per_step, default_config, dio,
-                                write_city_scene_dir, field, occupancy, hw, consensus,
-                                renderer, checkpoint, tile, Trainer, metrics)
+            got, b3, tr, evals = _city_run(root, counters, rays_per_step, default_config, dio,
+                                           write_city_scene_dir, field, occupancy, hw,
+                                           consensus, renderer, checkpoint, tile, Trainer,
+                                           metrics)
+            print(f"city: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                  f"GiB; phase city: {time.perf_counter() - t_phase:.1f} s")
+            if serve is not None:
+                served = serve(root, tr, evals)
     finally:
         tp.admm_round = admm_round
-    print(f"city: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"phase city: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": got, "b3": b3}
+    return {"launches": got, "b3": b3, "serve": served}
 
 
 def _city_run(root, counters, rays_per_step, default_config, dio, write_city_scene_dir, field,
@@ -1446,7 +1478,7 @@ def _city_run(root, counters, rays_per_step, default_config, dio, write_city_sce
     for k, n in got.items():
         if n <= 0:
             fail(f"kernel {k} was not launched in the city phase")
-    return got, b3
+    return got, b3, tr, evals
 
 
 def _pruning_query_check(state, cpu_params, cpu_fs, finest, n_split, counters, field,
@@ -1476,33 +1508,374 @@ def _pruning_query_check(state, cpu_params, cpu_fs, finest, n_split, counters, f
         hw.lookup_fwd = fwd
     plain = field.field_inference_sigma(cpu_params, cpu_fs, pts, step, backend="windowed")
     err, scale = float((card - plain).abs().max()), float(plain.abs().max())
-    a = args["a"]
-    ptsk, meta, table, resl, NW = a
-    f_k = hw.lookup_fwd(*a)
-    f_p = hw.lookup_fwd_plain(ptsk, table, resl, NW)
-    err_b3 = float((f_k - f_p).abs().max())
-    live = meta[:, :, 2].sum(dim=1) > 0
-    visited = int(torch.unique(meta[live, 0, 0]).numel())
-    real_rows = int((ptsk[:, 3, :] < NW).sum())
-    row = dict(points=int(pts.shape[0] * pts.shape[1]), chunks=int(ptsk.shape[0]),
-               live_chunks=int(live.sum()), visited_blocks=visited,
-               max_abs_err=err_b3, ms=timed(lambda: hw.lookup_fwd(*a), 20),
-               plain_ms=timed(lambda: hw.lookup_fwd_plain(ptsk, table, resl, NW), 1),
-               bytes=(ptsk[:, 0:4].numel() * 4 + meta.numel() * 4 + f_k.numel() * 4
-                      + visited * LEVELS * hw.WB * hw.W * 2 * 4),
-               ops=real_rows * LEVELS * 8 * 6)
+    row = dict(points=int(pts.shape[0] * pts.shape[1]), **_b3_entry(args["a"], iters=20))
     for k, c in counters.items():
         c.launches = saved[k]
     print(f"city pruning query, one chunk of {pts.shape[0]} cells x {pts.shape[1]} points at "
           f"the {tuple(int(r) for r in res)} rung: field_inference_sigma on the card against the CPU max err "
           f"{err:.3g}, largest entry {scale:.3g} (tol {CITY_SIGMA_TOL} of it); B3 at this shape "
-          f"({row['chunks']} chunks, {row['live_chunks']} live, {visited} visited blocks, "
-          f"{real_rows} real rows): max err {err_b3:.3g} against its plain version, "
-          f"{row['ms']:.4f} ms (plain {row['plain_ms']:.3f})")
-    if not (torch.isfinite(card).all() and err <= CITY_SIGMA_TOL * scale
-            and err_b3 <= CITY_SIGMA_TOL * float(f_p.abs().max())):
+          f"({row['chunks']} chunks, {row['live_chunks']} live, {row['visited_blocks']} visited "
+          f"blocks, {row['real_rows']} real rows): max err {row['max_abs_err']:.3g} against its "
+          f"plain version, {row['ms']:.4f} ms (plain {row['plain_ms']:.3f})")
+    if not (torch.isfinite(card).all() and err <= CITY_SIGMA_TOL * scale and row.pop("finite")
+            and row["max_abs_err"] <= CITY_SIGMA_TOL * row.pop("scale")):
         fail("city: the pruning query on the card differs from its plain version")
     return row
+
+
+# ---------------------------------------------------------------------------
+# serve: rendering and evaluating the city's exports (slice 9)
+# ---------------------------------------------------------------------------
+
+SERVE_VAL_VIEWS = 8  # VAL views 0-7 of the city's 96, at 128x128
+SERVE_KIND = dict(CITY_KIND, B4="hash_lookup_bwd")
+# Limits of the serve phase:
+# - VAL's mean PSNR at least 2 dB above the highest step-0 eval PSNR of the
+#   city phase (the exports were trained 125 steps from there);
+SERVE_MIN_PSNR_RISE = 2.0
+# - metric.txt's PSNR / SSIM are of the float render, evaluate_dirs' of the
+#   written 8-bit frames, which truncate each channel by less than q =
+#   1/255: a frame's MSE against the ground truth then lies within
+#   2 q mean|frame - gt| + 3 q^2 of the render's, and metric.txt's PSNR
+#   within the PSNRs of those two ends; SSIM within 0.01. evaluate_dirs'
+#   mean PSNR equal to the CPU's from the same PNGs within 1e-4 dB;
+SERVE_QUANT_SSIM, SERVE_PSNR_TOL = 0.01, 1e-4
+# - renders held together at RENDER_TOL (rgb 1e-4, depth 1e-3, the
+#   fused-vs-unfused limits): staged against windowed, early termination
+#   against one-shot, the staged card render against the CPU;
+# - LPIPS on the card against the CPU within 1e-5 relative.
+SERVE_LPIPS_RTOL = 1e-5
+SERVE_SIGMA_BIAS = 50.0  # the opaque scene: every sigma head's bias raised by this
+N_STAGED_CHECK_RAYS = 256
+
+
+def _lpips_random_params(seed: int = 0) -> dict:
+    """LPIPS weights at the AlexNet variant's shapes, random from a seed
+    (no weights file is on the card)."""
+    from scanerf_tpu_torch.eval import lpips
+
+    rng = np.random.default_rng(seed)
+    params, c_in = {}, 3
+    for i, (c_out, k, _, _, _) in enumerate(lpips._ALEX):
+        params[f"conv{i}_w"] = (rng.standard_normal((c_out, c_in, k, k)) * 0.05).astype(np.float32)
+        params[f"conv{i}_b"] = (rng.standard_normal(c_out) * 0.01).astype(np.float32)
+        params[f"lin{i}_w"] = np.abs(rng.standard_normal(c_out)).astype(np.float32)
+        c_in = c_out
+    return params
+
+
+def _b7_entry(a, kw, iters: int = 5) -> dict:
+    """B7 at a captured call's shape: max error against its plain version,
+    ms, plain ms, and what its bound counts (as the render chunk's row)."""
+    from scanerf_tpu_torch.ops.kernels import fused_render as fr
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+
+    stream, feats = a[0], a[2]
+    out_k = fr.hash_decode_fused(*a, **kw)
+    out_p = fr.hash_decode_fused_plain(*a)
+    NC = stream.pts.shape[0]
+    live = int((stream.meta[:, :, 2].sum(1) > 0).sum())
+    visited = int(stream.visited.sum())
+    b7_tc, b7_cc, _ = decoder_bounds(live * hw.CHUNK, 1, LEVELS * 8 * 6)
+    return dict(chunks=NC, live_chunks=live, visited_blocks=visited,
+                max_abs_err=float((out_k - out_p).abs().max()), finite=bool(torch.isfinite(out_k).all()),
+                ms=timed(lambda: fr.hash_decode_fused(*a, **kw), iters),
+                plain_ms=timed(lambda: fr.hash_decode_fused_plain(*a), 1),
+                bytes=(stream.pts[:, 0:7].numel() * 4 + stream.meta.numel() * 4 + NC * 4
+                       + NC * hw.CHUNK * 16
+                       + visited * LEVELS * hw.WB * hw.W * 2 * feats.element_size()
+                       + kw["slabs"].numel() * 4),
+                ops_ms=max(b7_tc, b7_cc))
+
+
+def _b3_entry(a, iters: int = 10) -> dict:
+    """B3 at a captured call's shape: max error against its plain version
+    and the largest entry, ms, plain ms, and what its bound counts (as the
+    training stream's row)."""
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+
+    pts, meta, table, res, NW = a
+    f_k = hw.lookup_fwd(*a)
+    f_p = hw.lookup_fwd_plain(pts, table, res, NW)
+    live = meta[:, :, 2].sum(dim=1) > 0
+    visited = int(torch.unique(meta[live, 0, 0]).numel())
+    real_rows = int((pts[:, 3, :] < NW).sum())
+    return dict(chunks=int(pts.shape[0]), live_chunks=int(live.sum()), visited_blocks=visited,
+                real_rows=real_rows, max_abs_err=float((f_k - f_p).abs().max()),
+                scale=float(f_p.abs().max()), finite=bool(torch.isfinite(f_k).all()),
+                ms=timed(lambda: hw.lookup_fwd(*a), iters),
+                plain_ms=timed(lambda: hw.lookup_fwd_plain(pts, table, res, NW), 1),
+                bytes=(pts[:, 0:4].numel() * 4 + meta.numel() * 4 + f_k.numel() * 4
+                       + visited * LEVELS * hw.WB * hw.W * 2 * table.element_size()),
+                ops=real_rows * LEVELS * 8 * 6)
+
+
+def _max_diffs(a: dict, b: dict) -> dict:
+    return {k: float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max()) for k, _ in RENDER_TOL
+            if k in a and k in b}
+
+
+def _check_close(what: str, a: dict, b: dict) -> dict:
+    errs = _max_diffs(a, b)
+    print(f"{what}: max |difference| {errs} (tol {dict(RENDER_TOL)})")
+    for k, tol in RENDER_TOL:
+        if k in errs and not errs[k] <= tol:
+            fail(f"{what}: {k} differs by {errs[k]} > {tol}")
+    return errs
+
+
+def serve_phase(root: str, tr, city_evals: dict, synth_scene, synth_view) -> dict:
+    """Serving the city's four exports through the port's entry points, on
+    the card: the render CLI's VAL over 8 views at 128x128 (``main``, in
+    process; metric.txt, then ``evaluate_dirs`` on its frames), one VAL
+    view staged (``backend="xla"``) against windowed, two DEMO frames at
+    720x1280 on a ``pose_paths`` path, one of them again with
+    SCANERF_EARLY_TERM=1 and with ``render_image(early_term=True)``
+    against the one-shot frame, and early termination on the render
+    phase's scene made opaque. Launches counted over those; then B7 at an
+    early-termination slab's shape, B3 at the staged encode's, the staged
+    render on the card against the CPU and LPIPS on the card against the
+    CPU. Returns the launches, B7's and B3's numbers."""
+    from scanerf_tpu_torch.data import io as dio
+    from scanerf_tpu_torch.data import png
+    from scanerf_tpu_torch.eval import lpips
+    from scanerf_tpu_torch.eval.evaluation import evaluate_dirs
+    from scanerf_tpu_torch.ops.kernels import fused_render as fr
+    from scanerf_tpu_torch.ops.kernels import fused_train as ft
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+    from scanerf_tpu_torch.ops.kernels import sampler as sp
+    from scanerf_tpu_torch.render import __main__ as cli
+    from scanerf_tpu_torch.render import early_term, renderer
+    from scanerf_tpu_torch.utils import lie, metrics, pose_paths
+    from scanerf_tpu_torch.utils import rays as rays_mod
+
+    t_phase = time.perf_counter()
+    counters = {"B1": sp.sample_fused, "B2": hw.pack, "B3": hw.lookup_fwd, "B4": hw.lookup_bwd,
+                "B5": ft.train_fwd, "B6": ft.train_bwd, "B7": fr.hash_decode_fused}
+    for c in counters.values():
+        c.launches = 0
+    logdir = tr.logdir
+    cfg_path = os.path.join(root, "serve.yaml")
+    with open(cfg_path, "w") as f:  # JSON is YAML: read without PyYAML
+        json.dump({"DATADIR": root, "INVALID_UNDERGROUND": bool(tr.cfg.INVALID_UNDERGROUND),
+                   "TRAINING": {"NUM_SAMPLE": 128, "NUM_BG_SAMPLE": 128}}, f)
+    os.environ.pop("SCANERF_EARLY_TERM", None)
+    os.environ.pop(lpips.ENV_VAR, None)
+    kw = dict(num_sample=128, num_bg_sample=128, num_march=512)
+
+    # --- VAL through the CLI
+    t0 = time.perf_counter()
+    val = cli.main([cfg_path, logdir, "VAL", "0", str(SERVE_VAL_VIEWS)])
+    t_val = time.perf_counter() - t0
+    val_dir = os.path.join(logdir, "val")
+    lines = open(os.path.join(val_dir, "metric.txt")).read().splitlines()
+    print(f"serve VAL: {SERVE_VAL_VIEWS} views at {CITY_HW}x{CITY_HW} in {t_val:.2f} s "
+          f"(scene load included), frames "
+          + ", ".join(f"{t * 1e3:.1f}" for t in val["times"]) + " ms; metric.txt: "
+          + " | ".join(lines))
+    if not (len(lines) == SERVE_VAL_VIEWS + 1 and lines[-1].startswith("mean\tPSNR ")
+            and len(val["psnr"]) == SERVE_VAL_VIEWS and np.isfinite(val["psnr"]).all()):
+        fail(f"serve VAL: metric.txt has {len(lines)} lines (want {SERVE_VAL_VIEWS} and a mean)")
+    gt_dir = os.path.join(root, "images")
+    png_psnr, png_ssim = [], []
+    q = 1.0 / 255.0
+    for i in range(SERVE_VAL_VIEWS):
+        pred = torch.from_numpy(png.read_png(os.path.join(val_dir, f"{i}.png")).astype(np.float32)
+                                / 255.0)
+        gt = torch.from_numpy(png.read_png(os.path.join(gt_dir, f"{i}.png")).astype(np.float32)
+                              / 255.0)
+        png_psnr.append(float(metrics.psnr(pred, gt)))
+        png_ssim.append(float(metrics.ssim(pred, gt)))
+        mse = float(((pred - gt) ** 2).mean())
+        slack = 2 * q * float((pred - gt).abs().mean()) + 3 * q * q
+        lo, hi = (-10 * np.log10(m) for m in (mse + slack, max(mse - slack, 1e-12)))
+        line_p, line_s = (float(v.split()[1]) for v in lines[i].split("\t")[1:3])
+        print(f"serve VAL view {i}: metric.txt PSNR {line_p:.4f} SSIM {line_s:.4f}; its 8-bit "
+              f"frame {png_psnr[i]:.4f} / {png_ssim[i]:.4f}, truncation bounds on PSNR "
+              f"[{lo:.4f}, {hi:.4f}]")
+        if not (lo - 5e-5 <= line_p <= hi + 5e-5 and abs(line_s - png_ssim[i]) <= SERVE_QUANT_SSIM):
+            fail(f"serve VAL view {i}: metric.txt's PSNR / SSIM disagree with its 8-bit frame")
+    ev = evaluate_dirs(val_dir, gt_dir, device="cuda")
+    mean_line = lines[-1].split("\t")
+    mean_p, mean_s = float(mean_line[1].split()[1]), float(mean_line[2].split()[1])
+    step0 = max(p for p, _ in city_evals[0].values())
+    print(f"serve VAL: mean PSNR {mean_p:.4f} dB SSIM {mean_s:.4f} (step-0 eval PSNR at most "
+          f"{step0:.4f}, limit +{SERVE_MIN_PSNR_RISE}); evaluate_dirs on the frames: PSNR "
+          f"{ev['psnr']:.4f} SSIM {ev['ssim']:.4f} over {ev['count']}; the CPU from the same PNGs "
+          f"{np.mean(png_psnr):.4f} (tol {SERVE_PSNR_TOL})")
+    if not mean_p >= step0 + SERVE_MIN_PSNR_RISE:
+        fail("serve VAL: the mean PSNR did not rise enough above step 0's")
+    if not (ev["count"] == SERVE_VAL_VIEWS
+            and abs(ev["psnr"] - float(np.mean(png_psnr))) <= SERVE_PSNR_TOL
+            and abs(ev["ssim"] - float(np.mean(png_ssim))) <= SERVE_PSNR_TOL
+            and abs(mean_p - float(np.mean(val["psnr"]))) <= 5e-5):
+        fail("serve: evaluate_dirs disagrees with the CPU, or metric.txt's mean with its lines")
+
+    # --- one VAL view staged against windowed
+    scene = renderer.load_scene(renderer.list_tile_dirs(logdir), device="cuda")
+    ks, c2ws, H, W = dio.read_campara(os.path.join(logdir, "refined_camera.log"),
+                                      return_shape=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    win = renderer.render_image(scene, ks[0], c2ws[0], H, W, device="cuda", **kw)
+    t_win = time.perf_counter() - t0
+    with Capture((sp, hw, fr)) as cap_staged:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stg = renderer.render_image(scene, ks[0], c2ws[0], H, W, device="cuda", backend="xla",
+                                    **kw)
+        torch.cuda.synchronize()
+        t_stg = time.perf_counter() - t0
+    print(f"serve staged VAL view 0 ({H}x{W}): {t_stg:.2f} s, windowed {t_win:.3f} s; max "
+          f"|difference| on the exports' own grids {_max_diffs(win, stg)} (no limit: the "
+          f"windowed backend gates samples by the union grid, the staged one by each tile's "
+          f"grid, and the tiles' grids are not aligned)")
+    full = dataclasses.replace(scene, occupied=torch.ones_like(scene.occupied),
+                               union_occ=torch.ones_like(scene.union_occ))
+    _check_close("serve staged against windowed, VAL view 0, all-occupied grids",
+                 renderer.render_image(full, ks[0], c2ws[0], H, W, device="cuda", **kw),
+                 renderer.render_image(full, ks[0], c2ws[0], H, W, device="cuda",
+                                       backend="xla", **kw))
+
+    # --- DEMO: a path between two city cameras, two 720x1280 frames
+    a_cam, b_cam = 0, 4
+    path = pose_paths.interpolate_poses(c2ws[a_cam], c2ws[b_cam], 4)
+    Hd, Wd = cli.DEMO_H, cli.DEMO_W
+    kd = ks[a_cam].copy()
+    kd[:2, :2] *= Wd / W  # the city camera's field of view across the wider frame
+    pose_paths.write_render_path(os.path.join(root, "renderPath.log"), kd, path, Hd, Wd)
+    demo_dir = os.path.join(logdir, "demo")
+    demo_ms = []
+    for i in (1, 2):
+        d = cli.main([cfg_path, logdir, "DEMO", str(i), str(i + 1)])
+        demo_ms.append(d["times"][0] * 1e3)
+        print(f"serve DEMO frame {i} ({Hd}x{Wd}): {demo_ms[-1]:.1f} ms, "
+              f"{Hd * Wd / d['times'][0]:.0f} rays/s")
+    one_png = png.read_png(os.path.join(demo_dir, "1.png"))
+    os.environ["SCANERF_EARLY_TERM"] = "1"
+    try:
+        d = cli.main([cfg_path, logdir, "DEMO", "1", "2"])
+    finally:
+        os.environ.pop("SCANERF_EARLY_TERM")
+    st = d["early_stats"]
+    early_png = png.read_png(os.path.join(demo_dir, "1.png"))
+    step = int(np.abs(early_png.astype(int) - one_png.astype(int)).max())
+    print(f"serve DEMO frame 1 with SCANERF_EARLY_TERM=1: {d['times'][0] * 1e3:.1f} ms "
+          f"({Hd * Wd / d['times'][0]:.0f} rays/s); fg rows {st['fg_rows']} / {st['full_fg_rows']} "
+          f"= {st['fg_rows'] / st['full_fg_rows']:.4f}, bg rows {st['bg_rows']} / "
+          f"{st['full_bg_rows']} = {st['bg_rows'] / st['full_bg_rows']:.4f}; the frame's "
+          f"8-bit pixels within {step} of the one-shot frame's")
+    print(f"serve DEMO frame 1 early termination: {len(st['slabs'])} slabs over "
+          f"{-(-Hd * Wd // cli.CHUNK)} chunks, the first (alive, batch): {st['slabs'][:12]}")
+    if not (d["early_term"] and step <= 1):
+        fail("serve DEMO: the early-termination frame differs from the one-shot frame")
+    pose1 = path[1]
+    kd_c = kd.copy()
+    kd_c[0, 2], kd_c[1, 2] = Wd / 2.0, Hd / 2.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = renderer.render_image(scene, kd_c, pose1, Hd, Wd, device="cuda", **kw)
+    t_one = time.perf_counter() - t0
+    early = renderer.render_image(scene, kd_c, pose1, Hd, Wd, device="cuda", early_term=True,
+                                  **kw)
+    t_early = time.perf_counter() - t0 - t_one
+    _check_close(f"serve early termination against one-shot, DEMO frame 1 (render_image: "
+                 f"early {t_early:.3f} s, one-shot {t_one:.3f} s)", one, early)
+
+    # --- early termination on the render phase's scene made opaque
+    dec = dict(synth_scene.decoders)
+    dec["sigma"] = {"w": dec["sigma"]["w"], "b": dec["sigma"]["b"] + SERVE_SIGMA_BIAS}
+    opaque = dataclasses.replace(synth_scene, decoders=dec,
+                                 dec_slabs=fr.pack_decoder_slabs(dec).contiguous())
+    K_s, c2w_s = synth_view
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = renderer.render_image(opaque, K_s, c2w_s, IMG_H, IMG_W, chunk=CHUNK, device="cuda",
+                                **kw)
+    t_one = time.perf_counter() - t0
+    st_o = {}  # the frame as one chunk: its slabs' alive counts in order
+    early = renderer.render_image(opaque, K_s, c2w_s, IMG_H, IMG_W, chunk=IMG_H * IMG_W,
+                                  device="cuda", early_term=True, early_kwargs={"stats": st_o},
+                                  **kw)
+    t_early = time.perf_counter() - t0 - t_one
+    _check_close(f"serve early termination against one-shot, opaque scene ({IMG_W}x{IMG_H}; "
+                 f"render_image: early {t_early:.3f} s in one chunk, one-shot {t_one:.3f} s in "
+                 f"chunks of {CHUNK})", one, early)
+    alive = [c for c, _ in st_o["slabs"]]
+    print(f"serve opaque scene (sigma bias +{SERVE_SIGMA_BIAS}): fg rows {st_o['fg_rows']} / "
+          f"{st_o['full_fg_rows']}, bg rows {st_o['bg_rows']} / {st_o['full_bg_rows']}, slabs "
+          f"{st_o['slabs']}")
+    if not (st_o["fg_rows"] < st_o["full_fg_rows"] and alive[-1] < alive[0]
+            and st_o["bg_rows"] < st_o["full_bg_rows"]):
+        fail("serve: early termination shed no work on the opaque scene")
+
+    got = {k: c.launches for k, c in counters.items()}
+    print(f"serve launches: {json.dumps(got)}")
+    for k in ("B1", "B2", "B3", "B7"):
+        if got[k] <= 0:
+            fail(f"kernel {k} was not launched in the serve phase")
+
+    # --- B7 at an early-termination slab's shape: the middle chunk of DEMO frame 1
+    xy = rays_mod.pixel_grid(Hd, Wd, device="cuda")
+    ro, rd = rays_mod.get_center_and_ray(
+        xy, lie.invert(torch.as_tensor(pose1, device="cuda")),
+        torch.as_tensor(kd_c, device="cuda"))
+    mid = slice((Hd * Wd - 8192) // 2, (Hd * Wd + 8192) // 2)
+    st_m = {}
+    with Capture((sp, hw, fr)) as cap_early:
+        early_term.render_rays_early(scene, ro[mid], rd[mid], device="cuda", stats=st_m, **kw)
+    b7 = _b7_entry(*cap_early.args["B7"])
+    b7.update(rays=8192, alive=st_m["slabs"][0][0], batch=st_m["slabs"][0][1],
+              rows=st_m["slabs"][0][1] * 32 * min(4, scene.n_tiles))
+    print(f"B7 early-termination slab (batch {b7['batch']} of {b7['alive']} alive rays x 32 "
+          f"samples x {min(4, scene.n_tiles)} tiles = {b7['rows']} rows; {b7['chunks']} chunks, "
+          f"{b7['live_chunks']} live, {b7['visited_blocks']} visited blocks): max err "
+          f"{b7['max_abs_err']:.3g} (tol 1e-4), {b7['ms']:.4f} ms, plain {b7['plain_ms']:.3f} ms")
+    if not (b7.pop("finite") and b7["max_abs_err"] <= 1e-4):
+        fail("B7 differs from its plain version at the early-termination slab's shape")
+
+    # --- B3 at the staged encode's shape: tile 0's fg points of view 0's first chunk
+    b3 = _b3_entry(cap_staged.args["B3"][0])
+    print(f"B3 staged encode (tile 0's fg samples of a {min(CHUNK, H * W)}-ray chunk x "
+          f"{kw['num_sample']}: "
+          f"{b3['chunks']} chunks, {b3['live_chunks']} live, {b3['visited_blocks']} visited "
+          f"blocks, {b3['real_rows']} real rows): max err {b3['max_abs_err']:.3g}, largest entry "
+          f"{b3['scale']:.3g} (tol 1e-5 of it), {b3['ms']:.4f} ms, plain {b3['plain_ms']:.3f} ms")
+    if not (b3.pop("finite") and b3["max_abs_err"] <= 1e-5 * b3.pop("scale")):
+        fail("B3 differs from its plain version at the staged encode's shape")
+
+    # --- the staged render of a few hundred rays on the card against the CPU
+    xy = rays_mod.pixel_grid(H, W, device="cuda")
+    ro, rd = rays_mod.get_center_and_ray(xy, lie.invert(torch.as_tensor(c2ws[0], device="cuda")),
+                                         torch.as_tensor(ks[0], device="cuda"))
+    sel = torch.linspace(0, H * W - 1, N_STAGED_CHECK_RAYS, device="cuda").long()
+    scene_cpu = renderer.load_scene(renderer.list_tile_dirs(logdir), device="cpu")
+    card = renderer.render_rays(scene, ro[sel], rd[sel], device="cuda", backend="xla", **kw)
+    plain = renderer.render_rays(scene_cpu, ro[sel].cpu(), rd[sel].cpu(), device="cpu",
+                                 backend="xla", **kw)
+    _check_close(f"serve staged render, {N_STAGED_CHECK_RAYS} rays of VAL view 0, card against "
+                 f"CPU", {k: v.cpu() for k, v in card.items()}, plain)
+    del scene_cpu
+
+    # --- LPIPS (random weights) on two 128x128 frames, card against CPU
+    params = _lpips_random_params()
+    img0 = png.read_png(os.path.join(val_dir, "0.png"))[..., ::-1].astype(np.float32) / 255.0
+    img1 = png.read_png(os.path.join(gt_dir, "0.png"))[..., ::-1].astype(np.float32) / 255.0
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # LPIPS must switch TF32 off itself
+    try:
+        on_card = lpips.LPIPSMetric(params=params, device="cuda")(img0, img1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    on_cpu = lpips.LPIPSMetric(params=params, device="cpu")(img0, img1)
+    rel = abs(on_card - on_cpu) / abs(on_cpu)
+    print(f"serve LPIPS (random weights) of VAL frame 0 against its ground truth: card "
+          f"{on_card:.8f}, CPU {on_cpu:.8f}, relative {rel:.3g} (tol {SERVE_LPIPS_RTOL})")
+    if not (np.isfinite(on_card) and rel <= SERVE_LPIPS_RTOL):
+        fail("serve: LPIPS on the card differs from the CPU")
+    print(f"phase serve: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": got, "b7_early_slab": b7, "b3_staged": b3,
+            "val_psnr": mean_p, "demo_ms": demo_ms}
 
 
 def print_ptxas(lib: str, log: str) -> None:
@@ -1794,29 +2167,21 @@ def main() -> None:
 
     # B7: fused hash + decoder, f32 and bf16 tables
     a, kw = cap.args["B7"]
-    stream, ct, feats, res, decs, NW = a
-    live = int((stream.meta[:, :, 2].sum(1) > 0).sum())
-    visited = int(stream.visited.sum())
-    errs = {}
-    for label, table in (("f32", feats), ("bf16", scene16.features_flat)):
-        out_k = fr.hash_decode_fused(stream, ct, table, res, decs, NW, **kw)
-        out_p = fr.hash_decode_fused_plain(stream, ct, table, res, decs, NW)
-        errs[label] = float((out_k - out_p).abs().max())
-        if not torch.isfinite(out_k).all() or errs[label] > 1e-4:
-            fail(f"B7 ({label} tables) differs from the plain version by {errs[label]} > 1e-4")
+    stream, ct, _, res, decs, NW = a
+    b7 = _b7_entry(a, kw)
+    live, visited = b7["live_chunks"], b7["visited_blocks"]
+    out_k = fr.hash_decode_fused(stream, ct, scene16.features_flat, res, decs, NW, **kw)
+    out_p = fr.hash_decode_fused_plain(stream, ct, scene16.features_flat, res, decs, NW)
+    errs = {"f32": b7["max_abs_err"], "bf16": float((out_k - out_p).abs().max())}
+    if not (b7["finite"] and torch.isfinite(out_k).all() and max(errs.values()) <= 1e-4):
+        fail(f"B7 differs from the plain version: max err {errs} (tol 1e-4)")
     # as B5's: the large products in 3xTF32 beside the rest on the CUDA cores
     b7_tc, b7_cc, b7_f32 = decoder_bounds(live * hw.CHUNK, 1, LEVELS * 8 * 6)
-    b7_bytes = (stream.pts[:, 0:7].numel() * 4 + stream.meta.numel() * 4 + NC * 4
-                + stream.pts.shape[0] * hw.CHUNK * 16
-                + visited * LEVELS * hw.WB * hw.W * 2 * feats.element_size()
-                + kw["slabs"].numel() * 4)
     rows.append(dict(
         name="fused_hash_decode", route="cuda", source="scanerf_tpu_torch/csrc/fused_render.cu",
         replaces="scanerf_tpu/ops/pallas/fused_render.py:195",
-        launches=launches[True]["B7"], max_abs_err=max(errs.values()),
-        ms=timed(lambda: fr.hash_decode_fused(*a, **kw), 5),
-        plain_ms=timed(lambda: fr.hash_decode_fused_plain(*a[:6]), 1),
-        bytes=b7_bytes, ops_ms=max(b7_tc, b7_cc), library_ms=None))
+        launches=launches[True]["B7"], max_abs_err=max(errs.values()), ms=b7["ms"],
+        plain_ms=b7["plain_ms"], bytes=b7["bytes"], ops_ms=b7["ops_ms"], library_ms=None))
     bf16_ms = timed(lambda: fr.hash_decode_fused(stream, ct, scene16.features_flat, res, decs,
                                                  NW, **kw), 5)
     print(f"B7: {stream.pts.shape[0]} chunks, {live} live, {visited} visited blocks: "
@@ -1878,7 +2243,8 @@ def main() -> None:
     rows += train_rows
     print(f"phase train: {time.perf_counter() - t1:.1f} s; total {time.perf_counter() - t_start:.1f} s")
     tile_phase()
-    city = city_phase()
+    city = city_phase(serve=lambda root, tr, evals: serve_phase(
+        root, tr, evals, scene, (K, views["overhead"])))
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def bound(r):
@@ -1896,6 +2262,13 @@ def main() -> None:
     for k, n in city["launches"].items():
         by_name[CITY_KIND[k]]["city_launches"] = n
     by_name["hash_lookup_fwd"]["pruning_query"] = bound(dict(city["b3"]))
+    # each kernel's launches in the serve phase, B7 at an early-termination
+    # slab's shape and B3 at the staged encode's
+    serve = city["serve"]
+    for k, n in serve["launches"].items():
+        by_name[SERVE_KIND[k]]["serve_launches"] = n
+    by_name["fused_hash_decode"]["early_slab"] = bound(dict(serve["b7_early_slab"]))
+    by_name["hash_lookup_fwd"]["staged"] = bound(dict(serve["b3_staged"]))
     # B1's row: the render chunk's numbers, all its launches, and each
     # training shape's launches and times beside them
     b1 = rows[0]

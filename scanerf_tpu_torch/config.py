@@ -16,6 +16,7 @@ needs nothing beyond the standard library.
 from __future__ import annotations
 
 import copy
+import json
 import os
 from typing import Any, Mapping
 
@@ -153,11 +154,7 @@ def parse_yaml(path: str, config_dir: str | None = None) -> ConfigDict:
     Reference: ``tools/utils.py:193-203`` — scene file first, then
     ``config/{SCENE}.yaml`` as base, ``base.update(scene)``.
     """
-    import yaml
-
-    with open(path) as f:
-        scene_cfg = yaml.safe_load(f) or {}
-
+    scene_cfg = _load_yaml(path)
     cfg = default_config()
     scene = scene_cfg.get("SCENE")
     if scene:
@@ -165,8 +162,23 @@ def parse_yaml(path: str, config_dir: str | None = None) -> ConfigDict:
             config_dir = os.path.dirname(os.path.abspath(path))
         base_path = os.path.join(config_dir, f"{scene}.yaml")
         if os.path.exists(base_path):
-            with open(base_path) as f:
-                base_cfg = yaml.safe_load(f) or {}
-            cfg.deep_update(base_cfg)
+            cfg.deep_update(_load_yaml(base_path))
     cfg.deep_update(scene_cfg)
     return cfg
+
+
+def _load_yaml(path: str) -> dict:
+    """A yaml file's mapping, through PyYAML. Where PyYAML is not
+    installed, a file in JSON syntax (a subset of YAML) is read with the
+    json module; any other file raises, naming PyYAML."""
+    with open(path) as f:
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        try:
+            return json.loads(text) or {}
+        except json.JSONDecodeError as e:
+            raise RuntimeError(f"reading {path} needs PyYAML; without it only YAML "
+                               "files in JSON syntax are read") from e
+    return yaml.safe_load(text) or {}

@@ -220,3 +220,10 @@ def parallel_tiles(jax_tiles, device="cuda"):
                                 cam_enable, dev) for t in range(cam_map.shape[0])]
     return (states, torch.tensor(cam_map, dtype=torch.int32, device=dev),
             torch.tensor(np.asarray(jax_tiles.confidence, np.float32), device=dev))
+
+
+def lpips_params(params: dict, device="cuda") -> dict:
+    """LPIPS weights (``convN_w``, ``convN_b``, ``linN_w``) as numpy
+    arrays -> f32 tensors on ``device``."""
+    device = _device.resolve(device)
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device) for k, v in params.items()}

@@ -531,14 +531,24 @@ def hash_lookup_sorted(pts, meta, features, resolutions) -> torch.Tensor:
     return _HashLookupSorted.apply(pts, meta, features, resolutions)
 
 
-def hash_encode_windowed(points, features, resolutions) -> torch.Tensor:
+def hash_encode_windowed(points, features, resolutions, tile: int = 0,
+                         n_tables: int = 1) -> torch.Tensor:
     """Original-order windowed hash (``sort_pack`` -> ``hash_lookup_sorted``
     -> ``unsort_rows``): points [N, 3] in [-2, 2], one table flat [L, H*2]
     or [L, H, 2] (H a power of two >= 2^14), resolutions [L, 3] ->
-    [N, L*2] f32, differentiable in points and f32 tables."""
+    [N, L*2] f32, differentiable in points and f32 tables. With
+    ``n_tables`` > 1, ``features`` is a tile-major stack [L, n_tables*H*2]
+    (``MultiTileScene.features_flat``) and every point is encoded under
+    table ``tile`` (``sort_pack_tables``, no gradient), so that no tile's
+    table is copied out of the stack."""
     N = points.shape[0]
-    L, H, _ = as_3d(features).shape
-    stream = sort_pack(points, torch.zeros_like(points), H)
-    feats = hash_lookup_sorted(stream.pts, stream.meta, features.reshape(L, H * 2),
+    L = features.shape[0]
+    H = as_3d(features).shape[1] // n_tables
+    if n_tables == 1:
+        stream = sort_pack(points, torch.zeros_like(points), H)
+    else:
+        tids = torch.full((N,), tile, dtype=torch.int32, device=points.device)
+        stream = sort_pack_tables(points, torch.zeros_like(points), tids, H, n_tables)
+    feats = hash_lookup_sorted(stream.pts, stream.meta, features.reshape(L, H * n_tables * 2),
                                resolutions)
     return unsort_rows(feats, stream.pidp, N)

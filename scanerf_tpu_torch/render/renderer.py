@@ -1,25 +1,32 @@
-"""Multi-tile inference renderer, windowed sorted-stream backend.
+"""Multi-tile inference renderer: the windowed sorted-stream backend and
+the staged per-tile backend.
 
 Counterpart of ``scanerf_tpu/render/renderer.py``. A frame renders in
-chunks of rays; per chunk:
+chunks of rays; per chunk, one occupancy-proportional CDF sampling pass
+over the union of the tiles' occupancy grids (B1,
+``ops/kernels/sampler.py``), the background exit-tile slots and their
+inverse-z samples. Then, with the **windowed** backend:
 
-1. one occupancy-proportional CDF sampling pass over the union of the
-   tiles' occupancy grids (B1, ``ops/kernels/sampler.py``), the
-   background exit-tile slots and their inverse-z samples;
-2. every fg (sample, tile) slot, up to ``max_blend_tiles`` containing
+1. every fg (sample, tile) slot, up to ``max_blend_tiles`` containing
    tiles per sample picked by seam weight, and every bg (sample, exit
    tile) slot becomes one row of a single window-sorted stream (B2,
    ``ops/kernels/hash_encode.py``);
-3. the fused hash + ShallowMLP kernel decodes the stream (B7,
+2. the fused hash + ShallowMLP kernel decodes the stream (B7,
    ``ops/kernels/fused_render.py``) or, with ``fuse_decoder=False``, the
    hash lookup (B3, ``ops/kernels/hash_encode.py``) and each tile's
    decoder in PyTorch; the rows are put back in order;
-4. seam-weighted fg blend, front-to-back compositing, and the blend of
+3. seam-weighted fg blend, front-to-back compositing, and the blend of
    the per-exit-tile background composites.
 
-Options of the JAX renderer that need what this port does not have yet
-raise ``NotImplementedError`` naming the ROADMAP item: ``backend="xla"``
-(the staged oracle), ``early_term=True`` and ``sharded=True``.
+The **staged** backend (``backend="xla"``, the JAX package's oracle)
+evaluates every sample under every tile in turn: each tile's encode
+(the global hash in PyTorch, or the windowed hash through B2 + B3 for
+CUDA tensors), its decoder in PyTorch, its own occupancy grid and seam
+weight, blended per sample. It is the only backend for global-hash tiles
+and for tiles whose resolution ladders differ (``shared_res=False``).
+``render_image(early_term=True)`` slab-marches the windowed backend
+(``render/early_term.py``). ``sharded=True`` raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 from scanerf_tpu_torch import _device
 from scanerf_tpu_torch.models import decoder as decoder_lib
 from scanerf_tpu_torch.ops import intersect
+from scanerf_tpu_torch.ops.hash_encode import hash_encode
 from scanerf_tpu_torch.ops.kernels import fused_render as fr
 from scanerf_tpu_torch.ops.kernels import hash_encode as hw
 from scanerf_tpu_torch.ops.sampling import cdf_sample_from_bounds, inverse_z_vals
@@ -53,6 +61,7 @@ class MultiTileScene:
     resolutions: torch.Tensor  # [T, L, 3] int32
     block_corner: torch.Tensor  # [T, 3] doubled bbox corner
     block_size: torch.Tensor  # [T, 3] doubled bbox size
+    occupied: torch.Tensor  # [T, Rx, Ry, Rz] bool, each tile's grid (the staged backend's)
     union_occ: torch.Tensor  # [Gx, Gy, Gz] bool
     union_corner: torch.Tensor  # [3]
     union_size: torch.Tensor  # [3]
@@ -199,6 +208,7 @@ def scene_from_arrays(features, decoder_vecs, resolutions, block_corner,
         resolutions=as_t(res),
         block_corner=as_t(corners),
         block_size=as_t(sizes),
+        occupied=as_t(np.asarray(occupied, bool)),
         union_occ=as_t(ug),
         union_corner=as_t(uc),
         union_size=as_t(us),
@@ -463,53 +473,64 @@ def _mark(hook, name: str) -> None:
         hook(name)
 
 
-def _render_windowed(scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles,
-                     bg_w, z_bg, d_bg, bg_valid, invalid_underground,
-                     max_blend_tiles=MAX_PTS_BLOCKS, fuse_decoder=True, hook=None):
-    """Capped-slot evaluation: one sorted stream of all fg and bg slots."""
+def _fg_rows(scene, rays_o, rays_d, z_vals, valid, Kf: int):
+    """The fg (sample, slot) rows of rays with samples z_vals [N, S], in
+    slot-major order ([Kf, N, S]: window ids stay piecewise constant) ->
+    (X, TID, DIR, DEAD, (w_fg, m_any, m_eval) [N, S, Kf])."""
     N, S = z_vals.shape
-    Sb = z_bg.shape[1]
-    Kf = min(max_blend_tiles, scene.n_tiles)
-    Kb = bg_tiles.shape[1]
-    dnorm = torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
-
     pts = rays_o[:, None, :] + z_vals[..., None] * rays_d[:, None, :]
     tags, w_fg, m_any, m_eval = _fg_slots_lut(scene, pts, Kf)
     x_fg = _contract_fg(scene.block_corner[tags], scene.block_size[tags], pts[:, :, None, :])
     x_fg = torch.where(m_any[..., None], x_fg, torch.zeros_like(x_fg))
+    X = x_fg.permute(2, 0, 1, 3).reshape(-1, 3)
+    TID = tags.permute(2, 0, 1).reshape(-1)
+    DIR = rays_d[:, None, None, :].expand(N, S, Kf, 3).permute(2, 0, 1, 3).reshape(-1, 3)
+    DEAD = (~(m_eval & valid[:, None, None])).permute(2, 0, 1).reshape(-1)
+    return X, TID, DIR, DEAD, (w_fg, m_any, m_eval)
 
-    pts_bg = rays_o[:, None, :] + z_bg[..., None] * rays_d[:, None, :]
-    cor_b = scene.block_corner[bg_tiles][:, None]
-    siz_b = scene.block_size[bg_tiles][:, None]
-    x_bg = _contract_bg(cor_b, siz_b, pts_bg[:, :, None, :])
-    bg_used = (bg_w > 0.0)[:, None, :]
-    x_bg = torch.where(bg_used[..., None], x_bg, torch.zeros_like(x_bg))
 
-    # slot-major row order ([K, N, S]): window ids stay piecewise constant
-    n_fg = N * S * Kf
-    X = torch.cat([x_fg.permute(2, 0, 1, 3).reshape(-1, 3),
-                   x_bg.permute(2, 0, 1, 3).reshape(-1, 3)])
-    TID = torch.cat([tags.permute(2, 0, 1).reshape(-1),
-                     bg_tiles[:, None, :].expand(N, Sb, Kb).permute(2, 0, 1).reshape(-1)])
-    DIR = torch.cat([rays_d[:, None, None, :].expand(N, S, Kf, 3).permute(2, 0, 1, 3).reshape(-1, 3),
-                     rays_d[:, None, None, :].expand(N, Sb, Kb, 3).permute(2, 0, 1, 3).reshape(-1, 3)])
-    DEAD = torch.cat([
-        (~(m_eval & valid[:, None, None])).permute(2, 0, 1).reshape(-1),
-        (~(bg_used & bg_valid[:, None, None])).expand(N, Sb, Kb).permute(2, 0, 1).reshape(-1),
-    ])
-    _mark(hook, "slots")
-    rows = _eval_rows(scene, X, TID, DIR, DEAD, fuse_decoder, hook)
-
-    rf = rows[:n_fg].reshape(Kf, N, S, 4).movedim(0, 2)
+def _fg_blend(rows, slots, dists, dnorm, valid):
+    """Seam-weighted blend of the fg rows [Kf*N*S, 4] -> (alpha [N, S],
+    premultiplied color [N, S, 3])."""
+    w_fg, m_any, m_eval = slots
+    N, S, Kf = w_fg.shape
+    rf = rows.reshape(Kf, N, S, 4).movedim(0, 2)
     alpha_f = 1.0 - torch.exp(-rf[..., 0] * (dists * dnorm)[..., None])
     wa = w_fg * alpha_f * m_eval.to(torch.float32)
     wsafe = (w_fg * m_any).sum(dim=-1).clamp_min(1e-8)
     alpha = wa.sum(dim=-1) / wsafe
     color = (wa[..., None] * rf[..., 1:4]).sum(dim=-2) / wsafe[..., None]
     alpha = torch.where(valid[:, None], alpha, torch.zeros_like(alpha))
-    rgb_fg, depth_fg, T_left = _composite_premult(alpha, color, z_vals)
+    return alpha, color
 
-    rb = rows[n_fg:].reshape(Kb, N, Sb, 4).movedim(0, 2)
+
+def _bg_rows(scene, rays_o, rays_d, z_bg, bg_tiles, bg_w, bg_valid):
+    """The bg (sample, exit slot) rows, slot-major: every exit slot
+    evaluates the same world points under its own tile's L-inf
+    contraction -> (X, TID, DIR, DEAD)."""
+    N, Sb = z_bg.shape
+    Kb = bg_tiles.shape[1]
+    pts_bg = rays_o[:, None, :] + z_bg[..., None] * rays_d[:, None, :]
+    cor_b = scene.block_corner[bg_tiles][:, None]
+    siz_b = scene.block_size[bg_tiles][:, None]
+    x_bg = _contract_bg(cor_b, siz_b, pts_bg[:, :, None, :])
+    bg_used = (bg_w > 0.0)[:, None, :]
+    x_bg = torch.where(bg_used[..., None], x_bg, torch.zeros_like(x_bg))
+    X = x_bg.permute(2, 0, 1, 3).reshape(-1, 3)
+    TID = bg_tiles[:, None, :].expand(N, Sb, Kb).permute(2, 0, 1).reshape(-1)
+    DIR = rays_d[:, None, None, :].expand(N, Sb, Kb, 3).permute(2, 0, 1, 3).reshape(-1, 3)
+    DEAD = (~(bg_used & bg_valid[:, None, None])).expand(N, Sb, Kb).permute(2, 0, 1).reshape(-1)
+    return X, TID, DIR, DEAD
+
+
+def _bg_blend(scene, rows, rays_o, rays_d, z_bg, d_bg, bg_tiles, bg_w, bg_valid,
+              invalid_underground):
+    """Composite each exit slot's bg rows [Kb*N*Sb, 4], then blend the
+    slots by their weights -> (rgb_bg [N, 3], depth_bg [N])."""
+    N, Sb = z_bg.shape
+    Kb = bg_tiles.shape[1]
+    dnorm = torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+    rb = rows.reshape(Kb, N, Sb, 4).movedim(0, 2)
     alpha_b = 1.0 - torch.exp(-rb[..., 0] * (d_bg * dnorm)[..., None])
     rgb_bg = torch.zeros((N, 3), device=rays_o.device)
     depth_bg = torch.zeros((N,), device=rays_o.device)
@@ -520,6 +541,121 @@ def _render_windowed(scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles,
         rgb_k, depth_k, _ = _composite_premult(a_k, a_k[..., None] * rb[..., k, 1:4], z_bg)
         rgb_bg = rgb_bg + bg_w[:, k:k + 1] * rgb_k
         depth_bg = depth_bg + bg_w[:, k] * depth_k
+    return rgb_bg, depth_bg
+
+
+def _render_windowed(scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles,
+                     bg_w, z_bg, d_bg, bg_valid, invalid_underground,
+                     max_blend_tiles=MAX_PTS_BLOCKS, fuse_decoder=True, hook=None):
+    """Capped-slot evaluation: one sorted stream of all fg and bg slots."""
+    Kf = min(max_blend_tiles, scene.n_tiles)
+    dnorm = torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+    fg = _fg_rows(scene, rays_o, rays_d, z_vals, valid, Kf)
+    bg = _bg_rows(scene, rays_o, rays_d, z_bg, bg_tiles, bg_w, bg_valid)
+    _mark(hook, "slots")
+    rows = _eval_rows(scene, *(torch.cat([f, b]) for f, b in zip(fg[:4], bg)),
+                      fuse_decoder, hook)
+    n_fg = fg[0].shape[0]
+    alpha, color = _fg_blend(rows[:n_fg], fg[4], dists, dnorm, valid)
+    rgb_fg, depth_fg, T_left = _composite_premult(alpha, color, z_vals)
+    rgb_bg, depth_bg = _bg_blend(scene, rows[n_fg:], rays_o, rays_d, z_bg, d_bg, bg_tiles,
+                                 bg_w, bg_valid, invalid_underground)
+    return rgb_fg, depth_fg, T_left, rgb_bg, depth_bg, valid
+
+
+# ---------------------------------------------------------------------------
+# staged (per-tile) backend
+# ---------------------------------------------------------------------------
+
+def _tile_table(scene: MultiTileScene, t: int) -> torch.Tensor:
+    """Tile t's flat [L, H*F] table, a view into the tile-major stack."""
+    L = scene.features_flat.shape[0]
+    return scene.features_flat.view(L, scene.n_tiles, -1)[:, t]
+
+
+def _tile_encode(scene: MultiTileScene, t: int, x: torch.Tensor) -> torch.Tensor:
+    """Hash encode of [-2, 2] coords [N, 3] under tile t -> [N, L*F] f32,
+    by the tiles' layout: the global hash in PyTorch; the windowed hash
+    through B2 + B3 on the whole table stack for CUDA tensors, its plain
+    gather for CPU tensors."""
+    res = scene.resolutions[t]
+    if scene.hash_layout == "windowed":
+        if x.is_cuda:
+            return hw.hash_encode_windowed(x, scene.features_flat, res, tile=t,
+                                           n_tables=scene.n_tiles)
+        return hw.hash_encode_windowed_ref(x, _tile_table(scene, t), res)
+    return hash_encode(x, _tile_table(scene, t), res).to(torch.float32)
+
+
+def _eval_blended(scene: MultiTileScene, pts, rays_d, dists, exit_tile=None):
+    """Every tile's decode of the samples pts [N, S, 3], blended per
+    sample -> (diffuse, specular, alpha) [N, S, ...]. fg (``exit_tile``
+    None): containing tiles, each gated by its own occupancy grid and
+    weighted by its seam weight, normalised by the weight of every
+    containing tile (empty ones too). bg: the points of a ray belong to
+    its exit tile ``exit_tile`` [N] alone, under the L-inf contraction."""
+    N, S = pts.shape[:2]
+    dnorm = torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+    res = torch.tensor(scene.occupied.shape[1:], device=pts.device)
+    acc_d = torch.zeros((N, S, 3), device=pts.device)
+    acc_s = torch.zeros((N, S, 3), device=pts.device)
+    acc_a = torch.zeros((N, S), device=pts.device)
+    acc_w = torch.zeros((N, S), device=pts.device)
+    viewdirs = rays_d[:, None, :].expand(N, S, 3)
+    for t in range(scene.n_tiles):
+        corner, size = scene.block_corner[t], scene.block_size[t]
+        inner_c, inner_s = corner + size / 4.0, size / 2.0
+        if exit_tile is not None:
+            contains = (exit_tile == t)[:, None].expand(N, S)
+            xc = _contract_bg(corner, size, pts)
+            w = torch.ones((N, S), device=pts.device)
+            occ_ok = torch.ones((N, S), dtype=torch.bool, device=pts.device)
+        else:
+            u = (pts - inner_c) / inner_s
+            contains = ((u >= 0) & (u < 1)).all(dim=-1)
+            w = _seam_weight(u, inner_s)
+            cell = torch.minimum((u * res).to(torch.int32).clamp_min(0),
+                                 (res - 1).to(torch.int32)).long()
+            occ_ok = scene.occupied[t][cell[..., 0], cell[..., 1], cell[..., 2]]
+            xc = _contract_fg(corner, size, pts)
+        feats = _tile_encode(scene, t, xc.reshape(-1, 3)).reshape(N, S, -1)
+        dec = {name: {k: v[t] for k, v in p.items()} for name, p in scene.decoders.items()}
+        out = decoder_lib.apply_decoder(dec, feats, viewdirs)
+        alpha_t = 1.0 - torch.exp(-out["sigma"][..., 0] * dists * dnorm)
+        spec = out["tint"] * out["specular"]
+        m_eval = (contains & occ_ok).to(torch.float32)
+        wa = w * alpha_t * m_eval
+        acc_d = acc_d + wa[..., None] * out["diffuse"]
+        acc_s = acc_s + wa[..., None] * spec
+        acc_a = acc_a + wa
+        acc_w = acc_w + w * contains.to(torch.float32)
+    wsafe = acc_w.clamp_min(1e-8)
+    return acc_d / wsafe[..., None], acc_s / wsafe[..., None], acc_a / wsafe
+
+
+def _render_staged(scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles, bg_w, z_bg, d_bg,
+                   bg_valid, invalid_underground, hook=None):
+    """Per-tile evaluation of every fg sample, then of every bg sample
+    once per exit slot, each composited as the windowed backend does."""
+    N = rays_o.shape[0]
+    pts = rays_o[:, None, :] + z_vals[..., None] * rays_d[:, None, :]
+    diffuse, specular, alpha = _eval_blended(scene, pts, rays_d, dists)
+    alpha = torch.where(valid[:, None], alpha, torch.zeros_like(alpha))
+    rgb_fg, depth_fg, T_left = _composite_premult(alpha, diffuse + specular, z_vals)
+    _mark(hook, "fg")
+    pts_bg = rays_o[:, None, :] + z_bg[..., None] * rays_d[:, None, :]
+    rgb_bg = torch.zeros((N, 3), device=rays_o.device)
+    depth_bg = torch.zeros((N,), device=rays_o.device)
+    for k in range(bg_tiles.shape[1]):
+        bdiff, bspec, balpha = _eval_blended(scene, pts_bg, rays_d, d_bg,
+                                             exit_tile=bg_tiles[:, k])
+        bmask = _bg_mask(scene, bg_tiles[:, k], rays_o, rays_d, z_bg, bg_valid,
+                         invalid_underground)
+        rgb_k, depth_k, _ = _composite_premult(balpha * bmask, (bdiff + bspec) * bmask[..., None],
+                                               z_bg)
+        rgb_bg = rgb_bg + bg_w[:, k:k + 1] * rgb_k
+        depth_bg = depth_bg + bg_w[:, k] * depth_k
+    _mark(hook, "bg")
     return rgb_fg, depth_fg, T_left, rgb_bg, depth_bg, valid
 
 
@@ -527,16 +663,25 @@ def _render_windowed(scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles,
 # entry points
 # ---------------------------------------------------------------------------
 
-def _check_options(scene, backend):
+def _resolve_backend(scene: MultiTileScene, backend: str) -> str:
+    """``auto`` -> ``windowed`` for windowed tiles with a shared
+    resolution ladder, else ``xla`` (staged); ``windowed`` needs both."""
     if backend not in ("auto", "windowed", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
-    if backend == "xla" or (backend == "auto" and scene.hash_layout != "windowed"):
-        raise NotImplementedError(
-            "the staged backend (backend='xla', global-hash tiles) is not "
-            "ported yet: ROADMAP.md queue A, renderer item 'staged backend'")
-    if scene.hash_layout != "windowed" or not scene.shared_res:
+    windowed_ok = scene.hash_layout == "windowed" and scene.shared_res
+    if backend == "auto":
+        return "windowed" if windowed_ok else "xla"
+    if backend == "windowed" and not windowed_ok:
         raise ValueError("the windowed renderer needs windowed-layout tiles "
                          "with a shared resolution ladder")
+    return backend
+
+
+def _check_device(scene: MultiTileScene, device) -> torch.device:
+    dev = _device.resolve(device)
+    if scene.device.type != dev.type:
+        raise ValueError(f"scene lives on {scene.device}, render asked for {dev}")
+    return dev
 
 
 def render_rays(scene: MultiTileScene, rays_o, rays_d, num_sample: int = 128,
@@ -545,15 +690,16 @@ def render_rays(scene: MultiTileScene, rays_o, rays_d, num_sample: int = 128,
                 max_blend_tiles: int = MAX_PTS_BLOCKS, fuse_decoder: bool = True,
                 device="cuda", stage_hook=None) -> dict:
     """Render rays [N, 3] (origin, unnormalized direction) on ``device``,
-    which must be the scene's. ``fuse_decoder=False`` decodes with the
-    hash lookup (B3) and the decoder in PyTorch instead of the fused
-    kernel (B7). ``stage_hook(name)``, when given, is called
-    after each stage (sample, slots, sort_pack, decode, unsort, blend), for
-    timing. Returns rgb [N,3], depth [N,1], rgb_fg, T_left, fore_valid."""
-    dev = _device.resolve(device)
-    if scene.device.type != dev.type:
-        raise ValueError(f"scene lives on {scene.device}, render asked for {dev}")
-    _check_options(scene, backend)
+    which must be the scene's. ``backend``: ``windowed`` (one sorted
+    stream: B2, then B7, or B3 and the decoder in PyTorch with
+    ``fuse_decoder=False``), ``xla`` (the staged per-tile backend, which
+    ignores ``max_blend_tiles`` for fg samples and ``fuse_decoder``) or
+    ``auto``. ``stage_hook(name)``, when given, is called after each stage
+    (windowed: sample, slots, sort_pack, decode, unsort, blend; staged:
+    sample, fg, bg, blend), for timing. Returns rgb [N,3], depth [N,1],
+    rgb_fg, T_left, fore_valid."""
+    _check_device(scene, device)
+    backend = _resolve_backend(scene, backend)
     rays_o = torch.as_tensor(rays_o, dtype=torch.float32, device=scene.device)
     rays_d = torch.as_tensor(rays_d, dtype=torch.float32, device=scene.device)
     z_vals, dists, valid = _sample_union(scene, rays_o, rays_d, num_sample, num_march)
@@ -561,9 +707,13 @@ def render_rays(scene: MultiTileScene, rays_o, rays_d, num_sample: int = 128,
         scene, rays_o, rays_d, min(max_blend_tiles, scene.n_tiles))
     z_bg, d_bg = inverse_z_vals(far, num_bg_sample)  # shared by all exit slots
     _mark(stage_hook, "sample")
-    rgb_fg, depth_fg, T_left, rgb_bg, depth_bg, valid = _render_windowed(
-        scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles, bg_w, z_bg, d_bg,
-        bg_valid, invalid_underground, max_blend_tiles, fuse_decoder, stage_hook)
+    args = (scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles, bg_w, z_bg, d_bg,
+            bg_valid, invalid_underground)
+    if backend == "windowed":
+        parts = _render_windowed(*args, max_blend_tiles, fuse_decoder, stage_hook)
+    else:
+        parts = _render_staged(*args, hook=stage_hook)
+    rgb_fg, depth_fg, T_left, rgb_bg, depth_bg, valid = parts
     rgb = rgb_fg + T_left[:, None] * rgb_bg
     depth = depth_fg + T_left * depth_bg
     out = {"rgb": rgb.clamp(0.0, 1.0), "depth": depth[:, None], "rgb_fg": rgb_fg,
@@ -574,18 +724,18 @@ def render_rays(scene: MultiTileScene, rays_o, rays_d, num_sample: int = 128,
 
 def render_image(scene: MultiTileScene, K, c2w, H: int, W: int, chunk: int = 2**13,
                  sharded: bool = False, early_term: bool = False,
-                 device="cuda", **kwargs) -> dict:
+                 early_kwargs: dict | None = None, device="cuda", **kwargs) -> dict:
     """Full-frame render in chunks of rays -> {"rgb": [H, W, 3],
-    "depth": [H, W, 1]} numpy arrays. ``kwargs`` go to ``render_rays``."""
+    "depth": [H, W, 1]} numpy arrays. ``kwargs`` go to ``render_rays``;
+    ``early_term=True`` renders each chunk with
+    ``early_term.render_rays_early`` instead (windowed tiles), which takes
+    ``early_kwargs`` (slab, term_eps, bucket_min, stats)."""
     from scanerf_tpu_torch.utils import lie, rays as rays_mod
 
-    dev = _device.resolve(device)
+    dev = _check_device(scene, device)
     if sharded:
         raise NotImplementedError("sharded render is not ported yet: ROADMAP.md "
-                                  "queue A, renderer item 'sharded render'")
-    if early_term:
-        raise NotImplementedError("early termination is not ported yet: "
-                                  "ROADMAP.md queue A, renderer item 'early termination'")
+                                  "queue A, item 13 (renderer item 'sharded render')")
     xy = rays_mod.pixel_grid(H, W, device=dev)
     pose = lie.invert(torch.as_tensor(np.asarray(c2w), dtype=torch.float32, device=dev))
     rays_o, rays_d = rays_mod.get_center_and_ray(
@@ -594,10 +744,18 @@ def render_image(scene: MultiTileScene, K, c2w, H: int, W: int, chunk: int = 2**
     pad = (-n) % chunk
     rays_o = torch.nn.functional.pad(rays_o, (0, 0, 0, pad))
     rays_d = torch.nn.functional.pad(rays_d, (0, 0, 0, pad), value=1.0)
+    if early_term:
+        from scanerf_tpu_torch.render.early_term import render_rays_early
+
+        kw = {k: v for k, v in kwargs.items() if k not in ("backend", "stage_hook")}
+        kw.update(early_kwargs or {})
     outs = {"rgb": [], "depth": []}
     for i in range(0, n + pad, chunk):
-        out = render_rays(scene, rays_o[i:i + chunk], rays_d[i:i + chunk],
-                          device=dev, **kwargs)
+        ro, rd = rays_o[i:i + chunk], rays_d[i:i + chunk]
+        if early_term:
+            out = render_rays_early(scene, ro, rd, device=dev, **kw)
+        else:
+            out = render_rays(scene, ro, rd, device=dev, **kwargs)
         outs["rgb"].append(out["rgb"])
         outs["depth"].append(out["depth"])
     return {k: torch.cat(v)[:n].reshape(H, W, -1).cpu().numpy() for k, v in outs.items()}

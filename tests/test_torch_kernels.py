@@ -87,7 +87,8 @@ def test_port_imports_no_jax():
 
 def test_entry_points_need_cuda(tmp_path):
     """(a) without CUDA the entry points raise when no device is given;
-    options the port does not have yet raise NotImplementedError."""
+    the sharded render, which the port does not have yet, raises
+    NotImplementedError; the staged backend and early termination run."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is valid")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -104,11 +105,14 @@ def test_entry_points_need_cuda(tmp_path):
         tr.render_image(scene, np.eye(3), np.eye(3, 4), 2, 2)
     with pytest.raises(RuntimeError, match="cuda"):
         convert.decoder_params(np.zeros(tdec.PARAMSIZE, np.float32))
+    small = dict(num_sample=4, num_bg_sample=4, num_march=8)
+    out = tr.render_rays(scene, z, np.ones_like(z), device="cpu", backend="xla", **small)
+    assert out["rgb"].shape == (4, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.render_rays(scene, z, z, device="cpu", backend="xla")
-    for kw in (dict(sharded=True), dict(early_term=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.render_image(scene, np.eye(3), np.eye(3, 4), 2, 2, device="cpu", **kw)
+        tr.render_image(scene, np.eye(3), np.eye(3, 4), 2, 2, device="cpu", sharded=True)
+    img = tr.render_image(scene, np.eye(3), np.eye(3, 4), 2, 2, device="cpu", early_term=True,
+                          early_kwargs=dict(slab=4), **small)
+    assert img["rgb"].shape == (2, 2, 3)
 
 
 # ---------------------------------------------------------------------------
