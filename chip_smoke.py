@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py
 
-Five phases, driven through the port's entry points, with the kernels'
+Six phases, driven through the port's entry points, with the kernels'
 launch counts set to 0 just before each counted run and read just after:
 render and training, each in both decoder configurations, fused (the
 default) and unfused (slice 3: ``fuse_decoder=False`` /
 ``fused_decoder=False``); then one tile from a scene directory to an
 export; then a city of tiles through the multi-tile ADMM trainer; then
-serving the city's exports.
+serving the city's exports; then the single-device extras of slice 10.
 
 Render (slice 1). Builds the port's CUDA kernels from csrc/, writes a
 4-tile scene in the reference export layout (16 levels x 2 features, H =
@@ -124,6 +124,27 @@ the CPU, and LPIPS with random weights on a frame and its ground truth
 on the card (with cuDNN's TF32 switched on around the call, which LPIPS
 must switch off) against the CPU (1e-5 relative).
 
+Extras (slice 10), after serve: ``render_normals`` of the tile phase's
+trained tile (windowed, H = 2^21) on 512 rays of its eval view at 128
+samples (M 512), counted (B1, B2, B3 and B4 in its dL/du-only mode),
+timed, its device-memory rise held below one table gradient's 256 MiB
+and its normals held against the same call on the CPU (1e-4); bench.py's
+fused full-recipe step dense, with HASH_BWD_BF16 (B6 with B4's bf16
+mode) and with SPARSE_ADAM, 2 warm-up and 3 counted, timed steps each,
+one SparseAdam update against the CPU's (counts equal, 1e-6), and B6 in
+its bf16 mode on the middle 256 chunks of a step's stream against its
+plain version (dL/du, dirs and slab 1e-4 of each one's largest entry,
+the table gradient 5e-6 of each level's against the plain bf16 scatter
+of B6a's own cotangent); B4's two modes against their plain versions on
+those chunks (dL/du 1e-4; the bf16 table gradient 5e-6 of each level's
+largest entry, and from 1e-5 to 2% of it away from exact B4), then timed
+on the whole stream; a global-hash tile (H = 2^12,
+the xla backend) trained 3 steps with STOCHASTIC_HASH_GRAD and one
+``hash_encode_stoch`` backward against the CPU's (1e-5); ``build_tiles``
+on two copies of the city's scene directory, on the card and on the
+CPU, whose tile_info.txt, training_views.txt and tiles.obj must be
+identical.
+
 It prints the card's name and power limit (nvidia-smi), each phase's
 seconds, and, before the last line, one JSON line ``{"kernels": [...]}``
 with B1-B7: per kernel, its launches in the counted runs, max error
@@ -132,8 +153,10 @@ could take for the same work); B1's row also has its kernel's time alone
 and each training shape's numbers, every row its launches in the city
 phase (``city_launches``) and in the serve phase (``serve_launches``),
 B3's row its numbers at the pruning query's shape (``pruning_query``)
-and at the staged encode's (``staged``), and B7's at an
-early-termination slab's (``early_slab``). The last line is ``{"ok": true,
+and at the staged encode's (``staged``), B7's at an
+early-termination slab's (``early_slab``), every row its launches in the
+extras phase (``extras_launches``), and B4's row its dL/du-only and bf16
+modes on a training step's stream (``du_only``, ``bf16``). The last line is ``{"ok": true,
 "device": {...}}``.
 
 Any failed build, launch or comparison ends the script with a non-zero
@@ -148,6 +171,7 @@ import dataclasses
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -308,37 +332,56 @@ def cameras():
 # ---------------------------------------------------------------------------
 
 class Capture:
-    """Swap the render's kernel wrappers for recorders that keep the first
-    call's arguments and call through; restore them on exit. A wrapper
-    counts its launches on the name it is bound to in its module, so the
-    recorder carries its own count and these launches stay out of the
-    wrapper's."""
+    """Swap kernel wrappers, given as (module, name, key), for recorders
+    that keep the first call's arguments under ``args[key]`` and call
+    through; restore them on exit. A wrapper counts its launches on the
+    name it is bound to in its module, so each recorder carries its own
+    count and these launches stay out of the wrapper's."""
 
-    def __init__(self, modules):
-        self.sampler, self.hw, self.fr = modules
-        self.args = {}
-
-    def _wrap(self, mod, name, key):
-        orig = getattr(mod, name)
-
-        def rec(*a, **kw):
-            self.args.setdefault(key, (a, kw))
-            return orig(*a, **kw)
-
-        rec.launches = 0
-        setattr(mod, name, rec)
-        return mod, name, orig
+    def __init__(self, *targets):
+        self.targets, self.args, self.saved = targets, {}, []
 
     def __enter__(self):
-        self.saved = [self._wrap(self.sampler, "sample_fused", "B1"),
-                      self._wrap(self.hw, "pack", "B2"),
-                      self._wrap(self.hw, "lookup_fwd", "B3"),
-                      self._wrap(self.fr, "hash_decode_fused", "B7")]
+        for mod, name, key in self.targets:
+            orig = getattr(mod, name)
+
+            def rec(*a, _orig=orig, _key=key, **kw):
+                self.args.setdefault(_key, (a, kw))
+                return _orig(*a, **kw)
+
+            rec.launches = 0
+            setattr(mod, name, rec)
+            self.saved.append((mod, name, orig))
         return self
 
     def __exit__(self, *exc):
         for mod, name, orig in self.saved:
             setattr(mod, name, orig)
+
+
+def render_targets(sp, hw, fr):
+    """The render's kernel wrappers for ``Capture``: B1, B2, B3 and B7."""
+    return ((sp, "sample_fused", "B1"), (hw, "pack", "B2"), (hw, "lookup_fwd", "B3"),
+            (fr, "hash_decode_fused", "B7"))
+
+
+class B4Launches:
+    """B4's launches in one mode, as a counter like the wrappers' own:
+    ``hash_encode.scatter_bwd`` counts each launch of B4's kernel by mode,
+    whichever wrapper (``lookup_bwd``, B6's ``train_bwd``) calls it."""
+
+    def __init__(self, mode: str):
+        from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+
+        self.counts, self.mode = hw.scatter_bwd.launches, mode
+
+    @property
+    def launches(self) -> int:
+        return self.counts[self.mode]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.counts[self.mode] = n
 
 
 # ---------------------------------------------------------------------------
@@ -396,17 +439,18 @@ def to_device(obj, dev):
     return obj
 
 
-def train_setup(tc):
+def train_setup(tc, log2_h: int = 21):
     """bench.py's workload: the synthetic sphere scene (16 cameras at
-    256x256), a field with 16 levels x 2 features at H = 2^21 (f32),
-    resolutions 32 -> 2048, a 64^3 occupancy grid; weights from a seed."""
+    256x256), a field with 16 levels x 2 features at H = 2^log2_h (2^21,
+    f32), resolutions 32 -> 2048, a 64^3 occupancy grid; weights from a
+    seed."""
     from scanerf_tpu_torch.data.synthetic import make_sphere_dataset
     from scanerf_tpu_torch.models import field
     from scanerf_tpu_torch.train import cameras, tile
 
     imgs, depths, ks, c2ws = make_sphere_dataset(TRAIN_CAMS, TRAIN_HW, TRAIN_HW)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params, fs = field.create_field(gen, [-1.0] * 3, [2.0] * 3, log2_hashmap_size=21,
+    params, fs = field.create_field(gen, [-1.0] * 3, [2.0] * 3, log2_hashmap_size=log2_h,
                                     grid_resolution=(32, 2048), sampler_log2dim=6,
                                     device="cuda")
     state = tile.create_train_state(params, fs, TRAIN_CAMS, tc, device="cuda")
@@ -453,14 +497,15 @@ def rel_l2(a, b) -> float:
     return float((a.double() - b.double()).norm() / a.double().norm().clamp_min(1e-30))
 
 
-def check_parts(what: str, parts, all_on: bool) -> list[float]:
+def check_parts(what: str, parts, all_on: bool, tol: float = 1e-4) -> list[float]:
     """Hold each (name, kernel, plain) part of a backward kernel's output
-    within 1e-4 of the plain part's own largest entry (the atomics add in
-    an order that changes from run to run); with ``all_on`` (every level
-    weighted 1) no part may be zero in the plain version. Returns the
-    max errors."""
+    within ``tol`` (1e-4) of the plain part's own largest entry (the
+    atomics add in an order that changes from run to run); with ``all_on``
+    (every level weighted 1) no part may be zero in the plain version.
+    Returns the max errors."""
     errs, worst = [], (0.0, "")
     for name, a, b in parts:
+        a, b = a.detach(), b.detach()
         scale = float(b.abs().max())
         e = float((a - b).abs().max())
         errs.append(e)
@@ -468,13 +513,13 @@ def check_parts(what: str, parts, all_on: bool) -> list[float]:
         worst = max(worst, (ratio, name))
         if all_on and scale == 0:
             fail(f"{what} {name} is zero in the plain version: the check is empty")
-        if not (torch.isfinite(a).all() and e <= 1e-4 * scale):
+        if not (torch.isfinite(a).all() and e <= tol * scale):
             fail(f"{what} {name} differs from its plain version: max err {e:.3g}, "
-                 f"largest entry {scale:.3g} (tol 1e-4 of it)")
+                 f"largest entry {scale:.3g} (tol {tol:g} of it)")
         if not name.startswith("d_tables level") or name.endswith((" 0", " 15")):
             print(f"{what} {name}: max err {e:.3g}, {ratio:.3g} of its largest "
-                  f"entry {scale:.3g} (tol 1e-4 of it), rel L2 {rel_l2(b, a):.3g}")
-    print(f"{what}: worst part {worst[1]} at {worst[0]:.3g} of its largest entry (tol 1e-4)")
+                  f"entry {scale:.3g} (tol {tol:g} of it), rel L2 {rel_l2(b, a):.3g}")
+    print(f"{what}: worst part {worst[1]} at {worst[0]:.3g} of its largest entry (tol {tol:g})")
     return errs
 
 
@@ -692,7 +737,7 @@ def train_phase(render_b3: dict) -> list[dict]:
     counters = {True: {"B1": sp.sample_fused, "B2": hw.pack, "B5": ft.train_fwd,
                        "B6": ft.train_bwd},
                 False: {"B1": sp.sample_fused, "B2": hw.pack, "B3": hw.lookup_fwd,
-                        "B4": hw.lookup_bwd}}
+                        "B4": B4Launches("exact")}}
     launches = dict.fromkeys(["B1", "B2", "B3", "B4", "B5", "B6"], 0)
     kept = {}
     for fused in (True, False):
@@ -707,15 +752,6 @@ def train_phase(render_b3: dict) -> list[dict]:
 
     # --- B5 and B6 inputs from one full-recipe step
     t_cmp = time.perf_counter()
-    rec = {}
-
-    def recorder(name, orig):
-        def rec_fn(*a, **kw):
-            rec.setdefault(name, a)
-            return orig(*a, **kw)
-
-        rec_fn.launches = 0
-        return rec_fn
 
     # B1's calls of the step by shape (N, S, M): the batch's fg samples and
     # the warp loss's visibility re-render
@@ -723,18 +759,17 @@ def train_phase(render_b3: dict) -> list[dict]:
 
     def b1_recorder(*a, **kw):
         b1_calls.setdefault((a[0].shape[0], a[4], a[8]), []).append((a, kw))
-        return saved[2](*a, **kw)
+        return b1_orig(*a, **kw)
 
     b1_recorder.launches = 0
-    saved = (ft.train_fwd, ft.train_bwd, sp.sample_fused)
-    ft.train_fwd, ft.train_bwd = recorder("B5", saved[0]), recorder("B6", saved[1])
-    sp.sample_fused = b1_recorder
+    b1_orig, sp.sample_fused = sp.sample_fused, b1_recorder
     try:
-        (_, _), _ = tile.compute_grads(state, data, tc, gen)
+        with Capture((ft, "train_fwd", "B5"), (ft, "train_bwd", "B6")) as cap:
+            (_, _), _ = tile.compute_grads(state, data, tc, gen)
     finally:
-        ft.train_fwd, ft.train_bwd, sp.sample_fused = saved
-    pts, meta, table, res, pslab, NW = rec["B5"]
-    pts, table, pslab, g = pts.detach(), table.detach(), pslab.detach(), rec["B6"][6]
+        sp.sample_fused = b1_orig
+    pts, meta, table, res, pslab, NW = cap.args["B5"][0]
+    pts, table, pslab, g = pts.detach(), table.detach(), pslab.detach(), cap.args["B6"][0][6]
     NC = pts.shape[0]
     live_c = meta[:, :, 2].sum(dim=1) > 0
     live, visited = int(live_c.sum()), int(torch.unique(meta[live_c, 0, 0]).numel())
@@ -864,7 +899,7 @@ def train_phase(render_b3: dict) -> list[dict]:
         fail(f"B1's training launches by shape {[v['launches'] for v in b1_train.values()]} "
              f"do not add up to the {launches['B1']} counted")
     del b1_calls
-    del rec, pts, meta, g
+    del cap, pts, meta, g
     torch.cuda.empty_cache()
     print(f"phase train kernels: {time.perf_counter() - t_cmp:.1f} s")
 
@@ -989,7 +1024,9 @@ def tile_phase() -> dict:
     of each block; a checkpoint at step 100 saved, loaded into a fresh
     state and held against the saved one, one step from each; then
     ``export_tile`` and the export rendered by the renderer. Returns the
-    phase's launches of each kernel."""
+    phase's launches of each kernel ("launches") and, for the extras
+    phase, the trained tile ("ctx": its state, cameras, eval view and
+    image size)."""
     from scanerf_tpu_torch.config import default_config
     from scanerf_tpu_torch import convert
     from scanerf_tpu_torch.data import io as dio
@@ -1182,7 +1219,9 @@ def tile_phase() -> dict:
         if n <= 0:
             fail(f"kernel {k} was not launched in the tile phase")
     print(f"phase tile: {time.perf_counter() - t_phase:.1f} s")
-    return got
+    return {"launches": got, "ctx": {"state": state, "cams": cams, "eval_view": eval_view,
+                                     "H": sc.H, "W": sc.W,
+                                     "table_rows": state.params.field.features.shape[1] // 2}}
 
 
 # ---------------------------------------------------------------------------
@@ -1492,23 +1531,12 @@ def _pruning_query_check(state, cpu_params, cpu_fs, finest, n_split, counters, f
         state.field_state.occupied_grid.cpu().numpy(), CITY_STEPS, finest, n_split)
     pts = torch.from_numpy((corners[:4096, None, :] + lattice[None]) * 2.0 - 1.0)
     step = torch.tensor(float(CITY_STEPS))
-    args = {}
-    fwd = hw.lookup_fwd
-
-    def capture(*a, **kw):
-        args.setdefault("a", a)
-        return fwd(*a, **kw)
-
-    capture.launches = 0
-    hw.lookup_fwd = capture
-    try:
+    with Capture((hw, "lookup_fwd", "B3")) as cap:
         card = field.field_inference_sigma(state.params.field, state.field_state,
                                            pts.cuda(), step.cuda(), backend="windowed").cpu()
-    finally:
-        hw.lookup_fwd = fwd
     plain = field.field_inference_sigma(cpu_params, cpu_fs, pts, step, backend="windowed")
     err, scale = float((card - plain).abs().max()), float(plain.abs().max())
-    row = dict(points=int(pts.shape[0] * pts.shape[1]), **_b3_entry(args["a"], iters=20))
+    row = dict(points=int(pts.shape[0] * pts.shape[1]), **_b3_entry(cap.args["B3"][0], iters=20))
     for k, c in counters.items():
         c.launches = saved[k]
     print(f"city pruning query, one chunk of {pts.shape[0]} cells x {pts.shape[1]} points at "
@@ -1650,8 +1678,8 @@ def serve_phase(root: str, tr, city_evals: dict, synth_scene, synth_view) -> dic
     from scanerf_tpu_torch.utils import rays as rays_mod
 
     t_phase = time.perf_counter()
-    counters = {"B1": sp.sample_fused, "B2": hw.pack, "B3": hw.lookup_fwd, "B4": hw.lookup_bwd,
-                "B5": ft.train_fwd, "B6": ft.train_bwd, "B7": fr.hash_decode_fused}
+    counters = {"B1": sp.sample_fused, "B2": hw.pack, "B3": hw.lookup_fwd,
+                "B4": B4Launches("exact"), "B5": ft.train_fwd, "B6": ft.train_bwd, "B7": fr.hash_decode_fused}
     for c in counters.values():
         c.launches = 0
     logdir = tr.logdir
@@ -1719,7 +1747,7 @@ def serve_phase(root: str, tr, city_evals: dict, synth_scene, synth_view) -> dic
     t0 = time.perf_counter()
     win = renderer.render_image(scene, ks[0], c2ws[0], H, W, device="cuda", **kw)
     t_win = time.perf_counter() - t0
-    with Capture((sp, hw, fr)) as cap_staged:
+    with Capture(*render_targets(sp, hw, fr)) as cap_staged:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stg = renderer.render_image(scene, ks[0], c2ws[0], H, W, device="cuda", backend="xla",
@@ -1822,7 +1850,7 @@ def serve_phase(root: str, tr, city_evals: dict, synth_scene, synth_view) -> dic
         torch.as_tensor(kd_c, device="cuda"))
     mid = slice((Hd * Wd - 8192) // 2, (Hd * Wd + 8192) // 2)
     st_m = {}
-    with Capture((sp, hw, fr)) as cap_early:
+    with Capture(*render_targets(sp, hw, fr)) as cap_early:
         early_term.render_rays_early(scene, ro[mid], rd[mid], device="cuda", stats=st_m, **kw)
     b7 = _b7_entry(*cap_early.args["B7"])
     b7.update(rays=8192, alive=st_m["slabs"][0][0], batch=st_m["slabs"][0][1],
@@ -1876,6 +1904,444 @@ def serve_phase(root: str, tr, city_evals: dict, synth_scene, synth_view) -> dic
     print(f"phase serve: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": got, "b7_early_slab": b7, "b3_staged": b3,
             "val_psnr": mean_p, "demo_ms": demo_ms}
+
+
+# ---------------------------------------------------------------------------
+# extras: normals, B4's dL/du-only and bf16 modes, the training knobs and
+# build_tiles (slice 10)
+# ---------------------------------------------------------------------------
+
+EXTRAS_RAYS, EXTRAS_SAMPLES, EXTRAS_MARCH = 512, 128, 512
+EXTRAS_KNOB_ARMS = {"dense": {}, "hash_bwd_bf16": dict(hash_bwd_bf16=True),
+                    "sparse_adam": dict(sparse_adam=True)}
+EXTRAS_WARM, EXTRAS_TIMED = 2, 3
+EXTRAS_STOCH_LOG2_H, EXTRAS_STOCH_STEPS, EXTRAS_STOCH_POINTS = 12, 3, 65536
+EXTRAS_ALLOCATION = {"TILE_SIZE": [2.0, 2.0, 2.0], "OVERLAP_RATIO": 0.2,
+                     "OFFSET": [0.0, 0.0, 0.0], "EXPECT_NUM": 4, "MIN_NUM_IMAGE": 10,
+                     "MAX_DIM_TILE": [4, 1, 4], "SCENE_TYPE": "outdoor"}
+# Limits of the extras phase:
+# - the normals of the card against the CPU's (both [0, 1]): the same
+#   samples (B1 equals its plain version bit for bit) and points; the
+#   features (B3) and dL/du (B4's dL/du mode against autograd through the
+#   plain gather) sum in other orders, ~1e-6 relative each, and a normal
+#   is its gradient normalised;
+EXTRAS_NORMAL_TOL = 1e-4
+# - B4's modes against their plain versions: dL/du within 1e-4 of its
+#   largest entry (check_parts, as B4 is held); the bf16 mode's table
+#   gradient, level by level, within 5e-6 of the level's largest entry.
+#   Kernel and plain version round the same products w * g to bf16 and
+#   differ only in the order of the f32 sums: the worst level read
+#   2.37e-7 to 4.44e-7 of its largest entry in B4 and B6 on an H100
+#   (exact B4's sums, unrounded, up to 1.74e-6), while exact B4, which
+#   skips the rounding, sits 1.01e-4 to 1.08e-4 of the largest entry from
+#   the bf16 result: the limit is 11 times the worst reading and a 20th
+#   of what a kernel without the rounding gives. The same limit holds
+#   B6's bf16 table gradient against the plain bf16 scatter of B6a's own
+#   cotangent: against train_bwd_plain's cotangent, which differs by
+#   ulps, a product near a bf16 rounding boundary rounds the other way,
+#   off by one bf16 step (2^-8 of it; 8.8e-4 to 1.05e-3 of a level);
+EXTRAS_BF16_TABLE_TOL = 5e-6
+# - bf16 against exact B4 within 2% of the largest entry (the JAX
+#   package's own bound for its bf16 backward, tests/test_pallas_hash.py:
+#   120-150) and at least 1e-5 of it, above the noise of exact B4's
+#   atomics (against its plain version at most 1.74e-6 of a level's
+#   largest entry on an H100);
+EXTRAS_BF16_VS_EXACT, EXTRAS_BF16_MIN_VS_EXACT = 0.02, 1e-5
+# - one SparseAdam update on the card against the same update on the CPU:
+#   counts equal, params and moments within 1e-6 of each array's largest
+#   entry (the same elementwise f32 operations; pow and sqrt may round
+#   apart by an ulp);
+EXTRAS_SPARSE_RTOL = 1e-6
+# - the stochastic-corner backward on the card against the CPU's on the
+#   same points: the same corners (a hash of the points' bits), the table
+#   gradient's index_add_ in another order on the card: within 1e-5 of each
+#   gradient's largest entry.
+EXTRAS_STOCH_RTOL = 1e-5
+
+
+def _max_rel(a, b) -> float:
+    """max |a - b| over b's largest entry (a, b on any devices)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _normals_check(tile_ctx, counters):
+    """``render_normals`` of the tile phase's trained tile on the card:
+    counted, timed, its device-memory rise, and against the CPU."""
+    from scanerf_tpu_torch.models import field
+    from scanerf_tpu_torch.train import cameras
+    from scanerf_tpu_torch.utils import rays as rays_mod
+
+    state, cams, view = tile_ctx["state"], tile_ctx["cams"], tile_ctx["eval_view"]
+    H, W = tile_ctx["H"], tile_ctx["W"]
+    xy = rays_mod.pixel_grid(H, W, device="cuda")
+    pose = cameras.get_rts(cams, state.params.se3_refine)[view]
+    ro, rd = rays_mod.get_center_and_ray(xy, pose, cams.ks[view])
+    sel = torch.linspace(0, H * W - 1, EXTRAS_RAYS, device="cuda").long()
+    ro, rd = ro[sel].contiguous(), rd[sel].contiguous()
+    step = torch.tensor(float(state.step), device="cuda")
+    fs = state.field_state
+    backend = field.effective_backend("windowed", tile_ctx["table_rows"])
+
+    def call(params, fstate, o, d, s):
+        return field.render_normals(params, fstate, o, d, EXTRAS_SAMPLES, s,
+                                    num_march=EXTRAS_MARCH, backend=backend)
+
+    call(state.params.field, fs, ro, rd, step)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    card = call(state.params.field, fs, ro, rd, step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    rise = torch.cuda.max_memory_allocated() - base
+    table_bytes = state.params.field.features.numel() * 4
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(state.params.field, fs, ro, rd, step)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    cpu = call(to_device(state.params.field, "cpu"), to_device(fs, "cpu"), ro.cpu(), rd.cpu(),
+               step.cpu())
+    err = float((card.cpu() - cpu).abs().max())
+    print(f"extras normals: {EXTRAS_RAYS} rays of view {view} at {EXTRAS_SAMPLES} samples "
+          f"(M {EXTRAS_MARCH}), {backend} tables at H = 2^{int(np.log2(tile_ctx['table_rows']))}"
+          f", step {state.step}: counted call {wall * 1e3:.1f} ms, then "
+          + ", ".join(f"{w * 1e3:.1f}" for w in walls) + " ms; launches "
+          + json.dumps(got))
+    print(f"extras normals: device memory rise {rise / 2**20:.1f} MiB during the call (one "
+          f"table's gradient would be {table_bytes / 2**20:.1f} MiB); card against CPU max "
+          f"|diff| {err:.3g} (tol {EXTRAS_NORMAL_TOL}); range [{float(card.min()):.4f}, "
+          f"{float(card.max()):.4f}], std {float(card.std()):.4f}")
+    if card.shape != (EXTRAS_RAYS, 3) or not torch.isfinite(card).all():
+        fail("extras: render_normals gave the wrong shape or non-finite values")
+    if not (float(card.min()) >= 0.0 and float(card.max()) <= 1.0 and float(card.std()) > 0):
+        fail("extras: the normals are not in [0, 1] or are constant")
+    if not err <= EXTRAS_NORMAL_TOL:
+        fail(f"extras: the card's normals differ from the CPU's by {err}")
+    if not rise < table_bytes:
+        fail(f"extras: render_normals raised device memory by {rise} bytes, not below one "
+             f"table gradient's {table_bytes}: the tables' gradient was built")
+    for k, n in got.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched by render_normals")
+    return got, {"ms": 1e3 * sum(walls) / len(walls), "err": err, "rise": rise}
+
+
+def _knob_arms(counters):
+    """bench.py's full-recipe fused step with each knob (dense exact Adam,
+    HASH_BWD_BF16, SPARSE_ADAM): 2 warm-up and 3 counted, timed steps; one
+    SparseAdam update on the card held against the CPU; B6 with B4's bf16
+    mode held against its plain version. Returns the launches, each arm's
+    rays/s and the dense arm's state, data and tc."""
+    from scanerf_tpu_torch.train import tile
+    from scanerf_tpu_torch.train.sparse_adam import SparseAdam
+
+    launches = dict.fromkeys(counters, 0)
+    rates, keep = {}, None
+    for arm, kw in EXTRAS_KNOB_ARMS.items():
+        tc = tile.TrainConfig(**TRAIN_KW, **ARMS["full_recipe"], **kw)
+        state, data = train_setup(tc)
+        gen = torch.Generator().manual_seed(1)
+        rays_per_step = (2**tc.batch_log2 // TRAIN_CAMS) // 4 * 4 * TRAIN_CAMS
+        for _ in range(EXTRAS_WARM):
+            state, aux = tile.train_step(state, data, tc, gen, device="cuda")
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EXTRAS_TIMED):
+            state, aux = tile.train_step(state, data, tc, gen, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, c in counters.items():
+            launches[k] += c.launches
+        rates[arm] = rays_per_step * EXTRAS_TIMED / wall
+        if not all(bool(torch.isfinite(v).all()) for v in aux.values()):
+            fail(f"extras: non-finite loss in the {arm} steps")
+        print(f"extras train {arm}: {EXTRAS_TIMED} steps of {rays_per_step} rays, "
+              f"{rates[arm]:.0f} training rays/s (dense exact arm "
+              f"{rates.get('dense', rates[arm]):.0f}); total loss {float(aux['total_loss']):.5g}")
+        if arm == "hash_bwd_bf16":
+            _b6_bf16_check(state, data, tc, gen)
+        if arm == "sparse_adam":
+            (_, _), grads = tile.compute_grads(state, data, tc, gen)
+            opt = state.hash_optimizer
+            p = state.params.field.features
+            g = grads["hash"][0]
+            lr = tile._schedules(tc)["hash"](opt.param_groups[0]["count"])
+            ref_p = p.detach().cpu().clone()
+            ref = SparseAdam([ref_p], lr=lr, betas=opt.param_groups[0]["betas"],
+                             eps=opt.param_groups[0]["eps"])
+            ref.state[ref_p] = {k: v.cpu().clone() for k, v in opt.state[p].items()}
+            ref_p.grad = g.cpu()
+            ref.step()
+            tile.apply_gradients(state, grads, tc)
+            st, rst = opt.state[p], ref.state[ref_p]
+            same = torch.equal(st["count"].cpu(), rst["count"])
+            errs = {k: _max_rel(a, b) for k, a, b in (("params", p, ref_p),
+                                                         ("mu", st["mu"], rst["mu"]),
+                                                         ("nu", st["nu"], rst["nu"]))}
+            active = float((g != 0).float().mean())
+            print(f"extras sparse Adam: one update on the card against the CPU: counts equal "
+                  f"{same} (entries stepped {active:.4f} of the table), worst relative "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + f" (tol {EXTRAS_SPARSE_RTOL})")
+            if not (same and max(errs.values()) <= EXTRAS_SPARSE_RTOL and 0 < active < 1):
+                fail("extras: SparseAdam on the card differs from the CPU's update")
+        if arm == "dense":
+            keep = (state, data, tc, gen)
+        else:
+            del state, data
+    torch.cuda.empty_cache()
+    return launches, rates, keep
+
+
+def _b4_modes(state, data, tc, gen, du_launches, bf16_launches):
+    """B4's dL/du-only and bf16 modes on a full-recipe step's stream, with
+    the feature cotangent B6a gives with every BARF level on: each against
+    its plain version on the middle chunks, bf16 against exact B4, then
+    both timed on the whole stream. Returns the two entries of B4's row."""
+    from scanerf_tpu_torch.models import field
+    from scanerf_tpu_torch.ops.kernels import fused_train as ft
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+    from scanerf_tpu_torch.train import tile
+
+    with Capture((ft, "train_bwd", "B6")) as cap:
+        tile.compute_grads(state, data, tc, gen)
+    # detached: the stream's positions and the table are the step's tracked tensors
+    pts, meta, table, res, _, feats, g, NW = (
+        a.detach() if isinstance(a, torch.Tensor) else a for a in cap.args["B6"][0][:8])
+    del cap
+    pslab_all = ft.pack_train_slab(state.params.field.decoder,
+                                   field.weight_feature(torch.tensor(20000.0, device="cuda")))
+    gf = _chunk_cotangent(ft.decoder_bwd(pts, meta, pslab_all, feats, g)[0], meta)
+    NC = pts.shape[0]
+    c0 = max(0, NC // 2 - N_SUB_CHUNKS // 2)
+    c1 = min(NC, c0 + N_SUB_CHUNKS)
+    sub = (pts[c0:c1].contiguous(), meta[c0:c1].contiguous())
+    gs = gf[c0 * hw.CHUNK:c1 * hw.CHUNK].contiguous()
+    exact_k = hw.lookup_bwd(*sub, table, res, gs, NW)
+    entries, errs = {}, {}
+    for mode in ("du", "bf16"):
+        dpts_k, dtab_k = hw.lookup_bwd(*sub, table, res, gs, NW, mode=mode)
+        dpts_p, dtab_p = hw.lookup_bwd_plain(sub[0], table, res, gs, NW, mode=mode)
+        if dpts_k[:, 3:].count_nonzero() or dpts_p[:, 3:].count_nonzero():
+            fail(f"B4 ({mode}) dpts rows 3-7 are not zero")
+        errs[mode] = max(check_parts(f"B4 ({mode})", [("dpts u", dpts_k[:, 0:3],
+                                                       dpts_p[:, 0:3])], True))
+        if mode == "du":
+            if dtab_k is not None or dtab_p is not None:
+                fail("B4 (du) returned a table gradient")
+            same = torch.equal(dpts_k, exact_k[0])
+            print(f"B4 (du) dL/du equals exact B4's bit for bit: {same}")
+        else:
+            errs[mode] = max(errs[mode], *check_parts(
+                "B4 (bf16)", [(f"d_tables level {lv}", dtab_k[lv], dtab_p[lv])
+                              for lv in range(LEVELS)], True, tol=EXTRAS_BF16_TABLE_TOL))
+            e_exact = float((dtab_k - exact_k[1]).abs().max())
+            scale = float(exact_k[1].abs().max())
+            print(f"B4 (bf16) against exact B4: table gradient max |diff| {e_exact:.3g}, "
+                  f"{e_exact / scale:.3g} of its largest entry {scale:.3g} (from "
+                  f"{EXTRAS_BF16_MIN_VS_EXACT:g} to {EXTRAS_BF16_VS_EXACT:g} of it); dL/du "
+                  f"equal bit for bit: {torch.equal(dpts_k, exact_k[0])}")
+            if not (EXTRAS_BF16_MIN_VS_EXACT * scale <= e_exact <= EXTRAS_BF16_VS_EXACT * scale):
+                fail("B4 (bf16) is not within 2% of exact B4, or too close to it to have "
+                     "rounded")
+        del dpts_k, dtab_k, dpts_p, dtab_p
+    del exact_k
+    torch.cuda.empty_cache()
+    real_rows = int((pts[:, 3, :] < NW).sum())
+    visited = int(torch.unique(meta[meta[:, :, 2].sum(dim=1) > 0, 0, 0]).numel())
+    tab_bytes = visited * LEVELS * hw.WB * hw.W * 2 * 4
+    # as B4's exact bound (lookup_kernels): pts rows 0-3, meta, the
+    # cotangent and the visited table blocks read, dpts written; the bf16
+    # mode also writes the dense table gradient, the dL/du mode none
+    common = pts[:, 0:4].numel() * 4 + pts.numel() * 4 + meta.numel() * 4 + gf.numel() * 4 \
+        + tab_bytes
+    for mode, n, extra, ops in (("du", du_launches, 0, 9),
+                                ("bf16", bf16_launches, table.numel() * 4, 16)):
+        entries[mode] = dict(
+            launches=n, max_abs_err=errs[mode],
+            ms=timed(lambda: hw.lookup_bwd(pts, meta, table, res, gf, NW, mode=mode), 5),
+            plain_ms=timed(lambda: hw.lookup_bwd_plain(pts, table, res, gf, NW, mode=mode), 1),
+            bytes=common + extra, ops=real_rows * LEVELS * 8 * ops, library_ms=None,
+            chunks=NC, real_rows=real_rows)
+    exact_ms = timed(lambda: hw.lookup_bwd(pts, meta, table, res, gf, NW), 5)
+    print(f"B4 modes on the whole stream ({NC} chunks, {real_rows} real rows, {visited} visited "
+          f"blocks): exact {exact_ms:.4f} ms, du {entries['du']['ms']:.4f} ms (plain "
+          f"{entries['du']['plain_ms']:.1f}), bf16 {entries['bf16']['ms']:.4f} ms (plain "
+          f"{entries['bf16']['plain_ms']:.1f})")
+    return {"du_only": entries["du"], "bf16": entries["bf16"]}
+
+
+def _chunk_cotangent(d_feats, meta):
+    """B6a's features' cotangent [NC, L*2, CHUNK] as B4's rows [Np, L*2],
+    zero on dead chunks (B6a writes only live ones)."""
+    live = (meta[:, :, 2].sum(dim=1) > 0)[:, None, None]
+    return torch.where(live, d_feats, torch.zeros_like(d_feats)).permute(0, 2, 1) \
+        .reshape(-1, d_feats.shape[1]).contiguous()
+
+
+def _b6_bf16_check(state, data, tc, gen):
+    """B6 as HASH_BWD_BF16 runs it (B6a, then B4's bf16 mode on the
+    chunk-major cotangent, rows 3-7 left to B6a) on one step's stream,
+    the middle chunks, every BARF level on: dL/du, dL/d dirs and the
+    slab's gradient against ``train_bwd_plain(bwd_bf16=True)`` at B6's
+    1e-4; the table gradient, level by level, against the plain bf16
+    scatter of B6a's own cotangent at EXTRAS_BF16_TABLE_TOL."""
+    from scanerf_tpu_torch.models import field
+    from scanerf_tpu_torch.ops.kernels import fused_train as ft
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+    from scanerf_tpu_torch.train import tile
+
+    with Capture((ft, "train_bwd", "B6")) as cap:
+        tile.compute_grads(state, data, tc, gen)
+    args, kw = cap.args["B6"]
+    if not kw.get("bwd_bf16"):
+        fail("extras: the HASH_BWD_BF16 step did not ask B6 for its bf16 mode")
+    pts, meta, table, res, _, feats, g, NW = (
+        a.detach() if isinstance(a, torch.Tensor) else a for a in args[:8])
+    del cap, args
+    slab = ft.pack_train_slab(state.params.field.decoder,
+                              field.weight_feature(torch.tensor(20000.0, device="cuda")))
+    NC = pts.shape[0]
+    c0 = max(0, NC // 2 - N_SUB_CHUNKS // 2)
+    c1 = min(NC, c0 + N_SUB_CHUNKS)
+    sub = (pts[c0:c1].contiguous(), meta[c0:c1].contiguous())
+    fs, gs = feats[c0:c1].contiguous(), g[c0 * hw.CHUNK:c1 * hw.CHUNK].contiguous()
+    del pts, meta, feats, g
+    dpts_k, dtab_k, dslab_k = ft.train_bwd(*sub, table, res, slab, fs, gs, NW, bwd_bf16=True)
+    dpts_p, dtab_p, dslab_p = ft.train_bwd_plain(*sub, table, res, slab, fs, gs, NW,
+                                                 bwd_bf16=True)
+    if dpts_k[:, 3::4].count_nonzero() or dpts_p[:, 3::4].count_nonzero():
+        fail("B6 (bf16) dpts rows 3 and 7 are not zero")
+    check_parts("B6 (bf16)", [("dpts u", dpts_k[:, 0:3], dpts_p[:, 0:3]),
+                              ("dpts dirs", dpts_k[:, 4:7], dpts_p[:, 4:7]),
+                              ("d_slab", dslab_k, dslab_p)], True)
+    gf = _chunk_cotangent(ft.decoder_bwd(*sub, slab, fs, gs)[0], sub[1])
+    dtab_q = hw.lookup_bwd_plain(sub[0], table, res, gf, NW, mode="bf16")[1]
+    check_parts("B6 (bf16) table gradient on B6a's cotangent",
+                [(f"d_tables level {lv}", dtab_k[lv], dtab_q[lv]) for lv in range(LEVELS)],
+                True, tol=EXTRAS_BF16_TABLE_TOL)
+    flips = max(float((dtab_k[lv] - dtab_p[lv]).abs().max() / dtab_p[lv].abs().max())
+                for lv in range(LEVELS))
+    print(f"B6 (bf16) table gradient against train_bwd_plain's, whose cotangent differs by "
+          f"ulps (not held: roundings flip): worst level {flips:.3g} of its largest entry")
+    del dpts_k, dtab_k, dslab_k, dpts_p, dtab_p, dslab_p, gf, dtab_q
+    torch.cuda.empty_cache()
+
+
+def _stochastic_check():
+    """A global-hash tile (H = 2^12, the xla backend) trained a few steps at
+    bench.py's width with STOCHASTIC_HASH_GRAD; one backward of
+    ``hash_encode_stoch`` on identical points, the card against the CPU."""
+    from scanerf_tpu_torch.ops import hash_encode as he
+    from scanerf_tpu_torch.train import tile
+
+    tc = tile.TrainConfig(**TRAIN_KW, **ARMS["rgb_only"], hash_backend="xla",
+                          stochastic_hash_grad=True)
+    state, data = train_setup(tc, log2_h=EXTRAS_STOCH_LOG2_H)
+    gen = torch.Generator().manual_seed(1)
+    before = state.params.field.features.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EXTRAS_STOCH_STEPS):
+        state, aux = tile.train_step(state, data, tc, gen, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rays = (2**tc.batch_log2 // TRAIN_CAMS) // 4 * 4 * TRAIN_CAMS * EXTRAS_STOCH_STEPS
+    if not (all(bool(torch.isfinite(v).all()) for v in aux.values())
+            and not torch.equal(before, state.params.field.features)):
+        fail("extras: the stochastic-gradient steps are not finite or did not move the table")
+    print(f"extras stochastic corners: {EXTRAS_STOCH_STEPS} rgb-only steps of a global-hash "
+          f"tile at H = 2^{EXTRAS_STOCH_LOG2_H}: {rays / wall:.0f} training rays/s, total loss "
+          f"{float(aux['total_loss']):.5g}")
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-1.9, 1.9, (EXTRAS_STOCH_POINTS, 3)).astype(np.float32)
+    cot = rng.standard_normal((EXTRAS_STOCH_POINTS, 2 * LEVELS)).astype(np.float32)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        p = torch.tensor(x, device=dev, requires_grad=True)
+        t = state.params.field.features.detach().to(dev).clone().requires_grad_()
+        out = he.hash_encode_stoch(p, t, state.field_state.resolutions.to(dev))
+        (out * torch.tensor(cot, device=dev)).sum().backward()
+        grads[dev] = (out.detach(), p.grad, t.grad)
+    errs = [_max_rel(a, b) for a, b in zip(grads["cuda"], grads["cpu"])]
+    print(f"extras stochastic corners, {EXTRAS_STOCH_POINTS} points, card against CPU: "
+          f"features {errs[0]:.3g}, dL/dpoints {errs[1]:.3g}, table gradient {errs[2]:.3g} of "
+          f"each one's largest entry (tol {EXTRAS_STOCH_RTOL})")
+    if not max(errs) <= EXTRAS_STOCH_RTOL:
+        fail("extras: the stochastic-corner backward on the card differs from the CPU's")
+
+
+def _build_tiles_check(scene_dir: str):
+    """``build_tiles`` on two copies of the city's scene directory, once on
+    the card and once on the CPU: the same three files."""
+    from scanerf_tpu_torch.config import default_config
+    from scanerf_tpu_torch.preprocess.build_tiles import build_tiles
+
+    out, files = {}, {}
+    for dev in ("cuda", "cpu"):
+        root = f"{scene_dir}-{dev}"
+        shutil.copytree(scene_dir, root)
+        cfg = default_config().deep_update({"DATADIR": root, "ALLOCATION": EXTRAS_ALLOCATION})
+        t0 = time.perf_counter()
+        out[dev] = build_tiles(cfg, device=dev)
+        secs = time.perf_counter() - t0
+        files[dev] = {}
+        for name in ("tile_info.txt", "training_views.txt", "tiles.obj"):
+            with open(os.path.join(root, "tiles", name), "rb") as f:
+                files[dev][name] = f.read()
+        print(f"extras build_tiles ({dev}): {secs:.2f} s, {len(out[dev]['tiles'])} tiles, views "
+              + json.dumps({k: len(v) for k, v in out[dev]["views"].items()}))
+    if files["cuda"] != files["cpu"] or not out["cuda"]["tiles"]:
+        fail("extras: build_tiles on the card wrote other files than on the CPU, or no tile")
+    print("extras build_tiles: tile_info.txt, training_views.txt and tiles.obj identical on "
+          "the card and on the CPU")
+
+
+def extras_phase(tile_ctx: dict, scene_dir: str) -> dict:
+    """Slice 10 on the card: ``render_normals`` of the tile phase's trained
+    tile (B1, B2, B3 and B4's dL/du mode); bench.py's fused full-recipe
+    step dense, with HASH_BWD_BF16 (B6 with B4's bf16 mode) and with
+    SPARSE_ADAM; B4's two new modes against their plain versions and
+    timed; the stochastic-corner gradient on a global-hash tile; and
+    ``build_tiles`` on the city's scene directory on the card and on the
+    CPU. Returns the phase's launches and B4's two new entries."""
+    from scanerf_tpu_torch.ops.kernels import fused_train as ft
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+    from scanerf_tpu_torch.ops.kernels import sampler as sp
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    got, normals = _normals_check(tile_ctx, {"B1": sp.sample_fused, "B2": hw.pack,
+                                             "B3": hw.lookup_fwd, "B4_du": B4Launches("du")})
+    del tile_ctx["state"]
+    # B4's exact mode runs inside B6 in the dense and SPARSE_ADAM steps
+    step_counters = {"B1": sp.sample_fused, "B2": hw.pack, "B4": B4Launches("exact"),
+                     "B5": ft.train_fwd, "B6": ft.train_bwd, "B4_bf16": B4Launches("bf16")}
+    step_got, rates, (state, data, tc, gen) = _knob_arms(step_counters)
+    for k, n in step_got.items():
+        got[k] = got.get(k, 0) + n
+    print("extras launches: " + json.dumps(got))
+    for k in ("B1", "B2", "B3", "B4", "B4_du", "B5", "B6", "B4_bf16"):
+        if got.get(k, 0) <= 0:
+            fail(f"kernel {k} was not launched in the extras phase")
+    b4 = _b4_modes(state, data, tc, gen, got["B4_du"], got["B4_bf16"])
+    del state, data
+    torch.cuda.empty_cache()
+    _stochastic_check()
+    torch.cuda.empty_cache()
+    _build_tiles_check(scene_dir)
+    print(f"phase extras: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": got, "b4": b4, "normals": normals, "rates": rates}
 
 
 def print_ptxas(lib: str, log: str) -> None:
@@ -2122,7 +2588,7 @@ def main() -> None:
     # the overhead view, where every ray meets occupied cells -----------
     ro, rd = frame_rays["overhead"]
     mid = slice((n_rays - CHUNK) // 2, (n_rays + CHUNK) // 2)
-    with Capture((sp, hw, fr)) as cap:
+    with Capture(*render_targets(sp, hw, fr)) as cap:
         out_mid = renderer.render_rays(scene, ro[mid], rd[mid], device="cuda", **RENDER_KW)
         renderer.render_rays(scene, ro[mid], rd[mid], device="cuda", fuse_decoder=False,
                              **RENDER_KW)
@@ -2242,9 +2708,19 @@ def main() -> None:
     train_rows, b1_train, b1_train_launches = train_phase(render_b3)
     rows += train_rows
     print(f"phase train: {time.perf_counter() - t1:.1f} s; total {time.perf_counter() - t_start:.1f} s")
-    tile_phase()
-    city = city_phase(serve=lambda root, tr, evals: serve_phase(
-        root, tr, evals, scene, (K, views["overhead"])))
+    tiled = tile_phase()
+    with tempfile.TemporaryDirectory() as xroot:
+        city_copy = os.path.join(xroot, "city")
+
+        def after_city(root, tr, evals):
+            served = serve_phase(root, tr, evals, scene, (K, views["overhead"]))
+            # the city's scene directory without the trainer's logs, for build_tiles
+            shutil.copytree(root, city_copy, ignore=shutil.ignore_patterns("logs"))
+            return served
+
+        city = city_phase(serve=after_city)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        extras = extras_phase(tiled["ctx"], city_copy)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def bound(r):
@@ -2269,6 +2745,15 @@ def main() -> None:
         by_name[SERVE_KIND[k]]["serve_launches"] = n
     by_name["fused_hash_decode"]["early_slab"] = bound(dict(serve["b7_early_slab"]))
     by_name["hash_lookup_fwd"]["staged"] = bound(dict(serve["b3_staged"]))
+    # each kernel's launches in the extras phase, and B4's dL/du-only and
+    # bf16 modes on a training step's stream
+    for r in rows:
+        r["extras_launches"] = 0
+    for k, n in extras["launches"].items():
+        if k in SERVE_KIND:  # B4's mode counts go on its du_only and bf16 entries
+            by_name[SERVE_KIND[k]]["extras_launches"] = n
+    for mode, entry in extras["b4"].items():
+        by_name["hash_lookup_bwd"][mode] = bound(dict(entry))
     # B1's row: the render chunk's numbers, all its launches, and each
     # training shape's launches and times beside them
     b1 = rows[0]

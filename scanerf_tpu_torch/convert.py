@@ -63,7 +63,10 @@ def scene(jax_scene, dtype=torch.float32, device="cuda") -> renderer.MultiTileSc
 # weights, which keep no state, then Adam, schedule), cam (Adam, schedule;
 # with cam_enable=False optax's set_to_zero, which keeps nothing). The
 # port's TrainState holds Adam's count as each tensor's ``step`` and the
-# schedule's as its group's ``count``.
+# schedule's as its group's ``count``. With sparse Adam the hash chain's
+# first state is a SparseAdamState whose count is per element, a tree like
+# mu's (".../[0]/.count/.field/.features", int32); the port holds it as
+# the SparseAdam state's ``count``, beside ``mu`` and ``nu``.
 
 # paths of ``tile.group_leaves``' tensors, in its order, below .params / .mu / .nu
 _GROUP_PATHS = {
@@ -91,25 +94,39 @@ def _state_items(state: tile_lib.TrainState, missing_moment):
     for group, paths in _GROUP_PATHS.items():
         for path, t in zip(paths, leaves[group]):
             yield ".params/" + path, t
-    opt = state.optimizer
+    for opt in state.optimizers():
+        yield from _opt_items(opt, missing_moment)
+    for n in _FIELD_STATE:
+        yield ".field_state/." + n, getattr(state.field_state, n)
+    for n in _ADMM:
+        yield ".admm/." + n, getattr(state.admm, n)
+    yield ".step", torch.tensor(state.step, dtype=torch.int32)
+
+
+def _opt_items(opt, missing_moment):
+    """(key, tensor) of one optimizer's groups: the Adam (or sparse Adam)
+    state and the schedule's count of each."""
+    sparse = isinstance(opt, tile_lib.SparseAdam)
     for grp in opt.param_groups:
         name = grp["name"]
+        adam = _chain(name, "adam")
+        if sparse:
+            for path, p in zip(_GROUP_PATHS[name], grp["params"]):
+                for part in ("count", "mu", "nu"):
+                    yield f"{adam}/.{part}/{path}", opt.state[p][part]
+            yield _chain(name, "schedule") + "/.count", torch.tensor(grp["count"],
+                                                                      dtype=torch.int32)
+            continue
         held = [opt.state.get(p, {}) for p in grp["params"]]
         steps = {int(s["step"]) for s in held if "step" in s} or {0}
         if len(steps) != 1:
             raise ValueError(f"group {name!r} holds Adam counts {sorted(steps)}")
-        adam = _chain(name, "adam")
         yield adam + "/.count", torch.tensor(steps.pop(), dtype=torch.int32)
         for path, p, s in zip(_GROUP_PATHS[name], grp["params"], held):
             yield adam + "/.mu/" + path, s["exp_avg"] if s else missing_moment(p)
             yield adam + "/.nu/" + path, s["exp_avg_sq"] if s else missing_moment(p)
         yield _chain(name, "schedule") + "/.count", torch.tensor(grp["count"],
                                                                   dtype=torch.int32)
-    for n in _FIELD_STATE:
-        yield ".field_state/." + n, getattr(state.field_state, n)
-    for n in _ADMM:
-        yield ".admm/." + n, getattr(state.admm, n)
-    yield ".step", torch.tensor(state.step, dtype=torch.int32)
 
 
 def state_tensors(state: tile_lib.TrainState) -> dict:
@@ -127,9 +144,11 @@ def state_like(state: tile_lib.TrainState) -> dict:
     return dict(_state_items(state, lambda p: p))
 
 
-def state_from_arrays(get, cam_enable: bool, device, like=None) -> tile_lib.TrainState:
+def state_from_arrays(get, cam_enable: bool, device, like=None,
+                      sparse_adam: bool = False) -> tile_lib.TrainState:
     """A port ``TrainState`` on ``device`` from ``get(key)``, an array under
-    each JAX checkpoint key. With ``like`` ({key: tensor}), each array takes
+    each JAX checkpoint key, with the tables under sparse Adam if
+    ``sparse_adam``. With ``like`` ({key: tensor}), each array takes
     its entry's dtype, and its shape where only the layout differs (tables
     stored as [L, H, F] before the flat [L, H*F] form); where the sizes
     differ the stored shape wins (an occupancy grid re-split by pruning).
@@ -152,21 +171,28 @@ def state_from_arrays(get, cam_enable: bool, device, like=None) -> tile_lib.Trai
             features=leaves["hash"][0],
             decoder={n: {k: next(dec) for k in ("w", "b")} for n in decoder_lib.PACK_ORDER}),
         se3_refine=leaves["cam"][0])
-    opt = tile_lib.build_optimizer(tile_lib.TrainConfig(cam_enable=cam_enable), params)
-    for grp in opt.param_groups:
-        name = grp["name"]
-        grp["count"] = int(get(_chain(name, "schedule") + "/.count"))
-        adam = _chain(name, "adam")
-        step = float(get(adam + "/.count"))
-        for path, p in zip(_GROUP_PATHS[name], grp["params"]):
-            opt.state[p] = {"step": torch.tensor(step, dtype=torch.float32, device=dev),
-                            "exp_avg": T(adam + "/.mu/" + path),
-                            "exp_avg_sq": T(adam + "/.nu/" + path)}
+    tc = tile_lib.TrainConfig(cam_enable=cam_enable, sparse_adam=sparse_adam)
+    opt = tile_lib.build_optimizer(tc, params)
+    hash_opt = tile_lib.build_hash_optimizer(tc, params)
+    for o in [opt] + ([hash_opt] if hash_opt else []):
+        for grp in o.param_groups:
+            name = grp["name"]
+            grp["count"] = int(get(_chain(name, "schedule") + "/.count"))
+            adam = _chain(name, "adam")
+            for path, p in zip(_GROUP_PATHS[name], grp["params"]):
+                if o is hash_opt:
+                    o.state[p] = {part: T(f"{adam}/.{part}/{path}")
+                                  for part in ("count", "mu", "nu")}
+                    continue
+                o.state[p] = {"step": torch.tensor(float(get(adam + "/.count")),
+                                                   dtype=torch.float32, device=dev),
+                              "exp_avg": T(adam + "/.mu/" + path),
+                              "exp_avg_sq": T(adam + "/.nu/" + path)}
     return tile_lib.TrainState(
         params=params, optimizer=opt,
         field_state=field_lib.FieldState(**{n: T(".field_state/." + n) for n in _FIELD_STATE}),
         admm=tile_lib.AdmmState(**{n: T(".admm/." + n) for n in _ADMM}),
-        step=int(get(".step")))
+        step=int(get(".step")), hash_optimizer=hash_opt)
 
 
 def _resolve(tree, key: str):
@@ -194,17 +220,28 @@ def train_state(jax_state, device="cuda") -> tile_lib.TrainState:
     it then, with no camera group."""
     _device.resolve(device)
     return state_from_arrays(lambda key: np.asarray(_resolve(jax_state, key)),
-                             _cam_enabled(jax_state), device)
+                             _cam_enabled(jax_state), device,
+                             sparse_adam=_sparse_adam(jax_state))
+
+
+def _has(jax_state, key: str) -> bool:
+    try:
+        _resolve(jax_state, key)
+        return True
+    except (AttributeError, IndexError, KeyError, TypeError):
+        return False
 
 
 def _cam_enabled(jax_state) -> bool:
     """Whether a JAX state holds an Adam state for the cameras (not under
     optax's ``set_to_zero``, whose chain is empty)."""
-    try:
-        _resolve(jax_state, _chain("cam", "adam") + "/.count")
-        return True
-    except (IndexError, TypeError):
-        return False
+    return _has(jax_state, _chain("cam", "adam") + "/.count")
+
+
+def _sparse_adam(jax_state) -> bool:
+    """Whether a JAX state's tables are under sparse Adam (a per-element
+    count tree instead of one count)."""
+    return _has(jax_state, _chain("hash", "adam") + "/.count/" + _GROUP_PATHS["hash"][0])
 
 
 def parallel_tiles(jax_tiles, device="cuda"):
@@ -214,10 +251,11 @@ def parallel_tiles(jax_tiles, device="cuda"):
     it; cam_map int32 [T, M]; confidence f32 [T, M]), on ``device``."""
     dev = _device.resolve(device)
     stacked = jax_tiles.state
-    cam_enable = _cam_enabled(stacked)
+    cam_enable, sparse = _cam_enabled(stacked), _sparse_adam(stacked)
     cam_map = np.asarray(jax_tiles.cam_map)
     states = [state_from_arrays(lambda key, t=t: np.asarray(_resolve(stacked, key))[t],
-                                cam_enable, dev) for t in range(cam_map.shape[0])]
+                                cam_enable, dev, sparse_adam=sparse)
+              for t in range(cam_map.shape[0])]
     return (states, torch.tensor(cam_map, dtype=torch.int32, device=dev),
             torch.tensor(np.asarray(jax_tiles.confidence, np.float32), device=dev))
 

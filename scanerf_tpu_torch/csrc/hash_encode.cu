@@ -74,6 +74,16 @@
 // atomics a (row, level) pair: with every level on, ~16x fewer. The order
 // of the adds changes from run to run, so the table gradient differs
 // between runs in the last bits of f32.
+//
+// B4 has two more modes, template flags of the same kernel (BwdMode). BF16
+// rounds each (row, corner, feature) contribution w * g to bf16 before the
+// warp sums it (the JAX HASH_BWD_BF16 option; the sums and dL/du stay f32).
+// DU computes dL/du alone, for a table that needs no gradient (the autograd
+// backward of surface normals): each real row regathers its 8 corners a level
+// from the table, with the exact mode's arithmetic in its order, so its dL/du
+// is the exact mode's; no slab, no atomics and no table gradient, so its bytes
+// are the regathers' and pts / g / dpts, and the scattered reads from L2 set
+// its time, as they set B3's first design's.
 
 #include "decoder.cuh"
 
@@ -282,6 +292,20 @@ __device__ __forceinline__ float2 sum_peers(unsigned peers, float2 x) {
   return x;
 }
 
+// B4's modes, compile-time flags of the one kernel: the exact scatter; the
+// same with each (row, corner, feature) contribution w * g rounded to bf16
+// before the warp sums it (the JAX kernel's bf16 one-hot operand,
+// hash_encode.py:996-1016: the one-hot is exact in bf16, its weighted
+// operand rounds, the sums stay f32); or dL/du alone, for a table that
+// needs no gradient (surface normals): no slab, no atomics, no table
+// gradient at all.
+enum BwdMode { BWD_EXACT = 0, BWD_BF16 = 1, BWD_DU = 2 };
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 lookup_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
                   const float* __restrict__ table, long long row_stride, int L,
@@ -318,6 +342,43 @@ lookup_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
     w[k] = (int)prow[3 * CHUNK + t];
     du[k][0] = du[k][1] = du[k][2] = 0.0f;
   }
+  if constexpr (MODE == BWD_DU) {
+    // each real row regathers its corners level by level, in the order and
+    // with the sums of the exact mode below, so dL/du is bit for bit its
+    for (int l = 0; l < L; ++l) {
+      const float* tl = table + (size_t)l * row_stride;
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        if (w[k] >= nw) continue;
+        const size_t gt = (size_t)(tid + k * THREADS) * g_row + (size_t)(2 * l) * g_feat;
+        const float g0 = gc[gt], g1 = gc[gt + g_feat];
+        const Corners kc = corner_setup(res, l, ux[k], uy[k], uz[k]);
+        float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+        for (int cn = 0; cn < 8; ++cn) {
+          const bool cx = (cn >> 2) & 1, cy = (cn >> 1) & 1, cz = cn & 1;
+          const float fx = cx ? kc.ox : 1.0f - kc.ox, fy = cy ? kc.oy : 1.0f - kc.oy,
+                      fz = cz ? kc.oz : 1.0f - kc.oz;
+          const float2 tv = load_pair(tl, (size_t)w[k] * WIN + corner_slot(kc, cn));
+          const float dot = g0 * tv.x + g1 * tv.y;
+          s0 += (cx ? 1.0f : -1.0f) * fy * fz * dot;
+          s1 += (cy ? 1.0f : -1.0f) * fx * fz * dot;
+          s2 += (cz ? 1.0f : -1.0f) * fx * fy * dot;
+        }
+        du[k][0] += s0 * ((float)res[3 * l] - 1.0f);
+        du[k][1] += s1 * ((float)res[3 * l + 1] - 1.0f);
+        du[k][2] += s2 * ((float)res[3 * l + 2] - 1.0f);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      const int t = tid + k * THREADS;
+      drow[t] = du[k][0];
+      drow[CHUNK + t] = du[k][1];
+      drow[2 * CHUNK + t] = du[k][2];
+    }
+    return;
+  }
   unsigned int adds = 0;
   const int lane = tid & 31;
   float2* slab = slabs + (tid >> 5) * WCAP * WIN;
@@ -353,7 +414,10 @@ lookup_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
           const float wt = fx * fy * fz;
           const int se = mine ? (w[k] - wb) * WIN + h : -1;
           const unsigned peers = __match_any_sync(0xffffffffu, se);
-          const float2 v = sum_peers(peers, make_float2(wt * g0, wt * g1));
+          const float2 v = MODE == BWD_BF16
+                               ? sum_peers(peers, make_float2(round_bf16(wt * g0),
+                                                              round_bf16(wt * g1)))
+                               : sum_peers(peers, make_float2(wt * g0, wt * g1));
           if (mine && (peers & ((1u << lane) - 1u)) == 0) {
             float2 cur = slab[se];
             cur.x += v.x;
@@ -444,21 +508,44 @@ extern "C" int scanerf_lookup_fwd(const float* pts, const int* meta, const void*
 // The table scatter and dL/du (B4, and B6's second launch): g is read at
 // g[c * CHUNK * L * 2 + t * g_row + f * g_feat] for row t of chunk c and
 // feature f; own_rows 8 also zeroes dpts rows 3-7, 3 leaves them alone.
-// With n_adds, adds to *n_adds the f32 elements it added to dtab with global
-// atomics.
+// mode: BWD_EXACT, BWD_BF16 (contributions rounded to bf16) or BWD_DU (dL/du
+// only: dtab and n_adds are not touched and may be null). With n_adds, adds
+// to *n_adds the f32 elements it added to dtab with global atomics.
+template <int MODE>
+cudaError_t launch_lookup_bwd(const float* pts, const int* meta, const float* table,
+                              long long row_stride, int L, const int* res, const float* g,
+                              int g_row, int g_feat, int nw, int NC, int own_rows, float* dtab,
+                              float* dpts, unsigned long long* n_adds, cudaStream_t s) {
+  const int smem = MODE == BWD_DU ? 0 : (int)sizeof(float2) * WARPS * WCAP * WIN;
+  cudaError_t e = cudaFuncSetAttribute(lookup_bwd_kernel<MODE>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  if (NC > 0)
+    lookup_bwd_kernel<MODE><<<NC, THREADS, smem, s>>>(pts, meta, table, row_stride, L, res, g,
+                                                      g_row, g_feat, nw, own_rows, dtab, dpts,
+                                                      n_adds);
+  return cudaGetLastError();
+}
+
 extern "C" int scanerf_lookup_bwd(const float* pts, const int* meta, const float* table,
                                   long long row_stride, int L, const int* res,
                                   const float* g, int g_row, int g_feat, int nw, int NC,
-                                  int own_rows, float* dtab, float* dpts,
+                                  int own_rows, int mode, float* dtab, float* dpts,
                                   unsigned long long* n_adds, void* stream) {
-  if (L > MAXL || L < 1 || (own_rows != 3 && own_rows != 8)) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(float2) * WARPS * WCAP * WIN;
-  cudaError_t e = cudaFuncSetAttribute(lookup_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (NC > 0)
-    lookup_bwd_kernel<<<NC, THREADS, smem, (cudaStream_t)stream>>>(
-        pts, meta, table, row_stride, L, res, g, g_row, g_feat, nw, own_rows, dtab, dpts,
-        n_adds);
-  return (int)cudaGetLastError();
+  if (L > MAXL || L < 1 || (own_rows != 3 && own_rows != 8) || mode < BWD_EXACT ||
+      mode > BWD_DU || (mode != BWD_DU && !dtab))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case BWD_EXACT:
+      return (int)launch_lookup_bwd<BWD_EXACT>(pts, meta, table, row_stride, L, res, g, g_row,
+                                               g_feat, nw, NC, own_rows, dtab, dpts, n_adds, s);
+    case BWD_BF16:
+      return (int)launch_lookup_bwd<BWD_BF16>(pts, meta, table, row_stride, L, res, g, g_row,
+                                              g_feat, nw, NC, own_rows, dtab, dpts, n_adds, s);
+    default:
+      return (int)launch_lookup_bwd<BWD_DU>(pts, meta, table, row_stride, L, res, g, g_row,
+                                            g_feat, nw, NC, own_rows, nullptr, dpts, nullptr,
+                                            s);
+  }
 }

@@ -24,9 +24,17 @@ doubled bbox, or, in BS mode, a window around the proxy mesh's depth
   (``render_fore_rays`` / ``render_bg_rays``) each encode their points
   and decode them in PyTorch, as the JAX package does in XLA.
 
+The training knobs apply where the JAX package applies them:
+``stochastic_grad`` (the stochastic-corner table gradient,
+``hash_encode_stoch``) on the xla backend only, ``bwd_onehot_bf16`` (the
+table gradient's contributions rounded to bf16 in B4's kernel) on the
+windowed backend only; each backend ignores the other's. Sharded tables
+raise ``NotImplementedError`` naming their ROADMAP item.
+
 ``field_inference_sigma`` is the density query of occupancy pruning, in
-either layout. Options of the JAX function that need what the port does
-not have yet raise ``NotImplementedError`` naming their ROADMAP item.
+either layout; ``compute_normal`` and ``render_normals`` take its gradient
+in the points for surface normals (on the card the windowed layout's
+backward is B4 in its dL/du mode: the tables need no gradient).
 """
 
 from __future__ import annotations
@@ -202,33 +210,28 @@ def _compose_fg_bg(fg: dict, bg: dict, rays_o, rays_d, train: bool) -> dict:
     return out
 
 
-def _check_options(table_shards, bwd_onehot_bf16, stochastic_grad):
+def _check_options(table_shards):
     if table_shards > 1:
         raise NotImplementedError("sharded tables are not ported yet: ROADMAP.md "
                                   "queue A, item 'Multi-device and opt-in knobs'")
-    if stochastic_grad:
-        raise NotImplementedError("the stochastic-corner gradient is not ported yet: "
-                                  "ROADMAP.md queue A, item 'Multi-device and opt-in "
-                                  "knobs'")
-    if bwd_onehot_bf16:
-        raise NotImplementedError("hash_bwd_bf16 is not ported: ROADMAP.md queue A, "
-                                  "item 'Multi-device and opt-in knobs'")
 
 
 def render_batch_rays(params: FieldParams, state: FieldState, rays_o, rays_d, z_vals,
                       dists, valid, step: torch.Tensor, contract, infinity: bool,
-                      train: bool) -> dict:
+                      train: bool, stochastic_grad: bool = False) -> dict:
     """One pass of the global-hash backend: the samples z_vals / dists
     [N, S] of rays [N, 3], masked by ``valid`` [N] (invalid rays
     contribute nothing and keep T_left 1), contracted by ``contract``,
-    encoded by ``hash_encode`` and decoded in PyTorch."""
+    encoded by ``hash_encode`` (``hash_encode_stoch`` with
+    ``stochastic_grad``) and decoded in PyTorch."""
     N, S = z_vals.shape
     zero = torch.zeros((), device=rays_o.device)
     z = torch.where(valid[:, None], z_vals, zero)
     d = torch.where(valid[:, None], dists, zero)
     x = contract(state, (rays_o[:, None, :] + z[..., None] * rays_d[:, None, :])
                  .reshape(-1, 3))
-    feats = hash_encode.hash_encode(x, params.features, state.resolutions)
+    encode = hash_encode.hash_encode_stoch if stochastic_grad else hash_encode.hash_encode
+    feats = encode(x, params.features, state.resolutions)
     dirs = rays_d[:, None, :].expand(N, S, 3).reshape(-1, 3)
     cols = decode_columns(params.decoder, feats, dirs, weight_feature(step))
     return _composite_premul(_as_parts(cols, N, S), z, d, rays_d, valid,
@@ -237,7 +240,8 @@ def render_batch_rays(params: FieldParams, state: FieldState, rays_o, rays_d, z_
 
 def render_fore_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
                      num_sample: int, step: torch.Tensor, occlusion_mask=None,
-                     train: bool = True, num_march: int = 512) -> dict:
+                     train: bool = True, num_march: int = 512,
+                     stochastic_grad: bool = False) -> dict:
     """The global-hash foreground pass: occupancy-CDF samples (B1 on the
     card) over the inner bbox."""
     z_vals, dists, valid = sampling.sample_points_grid(
@@ -246,7 +250,8 @@ def render_fore_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
     if occlusion_mask is not None:
         valid = valid & occlusion_mask
     out = render_batch_rays(params, state, rays_o, rays_d, z_vals, dists, valid, step,
-                            contract_fore, infinity=False, train=train)
+                            contract_fore, infinity=False, train=train,
+                            stochastic_grad=stochastic_grad)
     out["fore_valid"] = valid
     return out
 
@@ -254,7 +259,7 @@ def render_fore_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
 def render_bg_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
                    num_sample: int, step: torch.Tensor, occlusion_mask=None,
                    train: bool = True, invalid_underground: bool = False,
-                   bg_z=None) -> dict:
+                   bg_z=None, stochastic_grad: bool = False) -> dict:
     """The global-hash background pass: inverse-z samples beyond the
     doubled bbox, or the BS-mode samples ``bg_z`` = (z, dists, valid)."""
     z_vals, dists, valid = bg_z if bg_z is not None else _bg_samples(
@@ -262,7 +267,8 @@ def render_bg_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
     if occlusion_mask is not None:
         valid = valid & occlusion_mask
     out = render_batch_rays(params, state, rays_o, rays_d, z_vals, dists, valid, step,
-                            contract_bg, infinity=True, train=train)
+                            contract_bg, infinity=True, train=train,
+                            stochastic_grad=stochastic_grad)
     out["bg_valid"] = valid
     return out
 
@@ -297,25 +303,30 @@ def render_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
     (BS mode). ``stage_hook(name)``, when given, is called after each stage
     of the windowed path (sample, sort_pack, decode, unsort, composite) for
     timing. Differentiable in the field's params and in rays_o / rays_d
-    (through the sample positions and view dirs)."""
-    _check_options(table_shards, bwd_onehot_bf16, stochastic_grad)
+    (through the sample positions and view dirs). ``stochastic_grad``
+    applies to the xla backend and ``bwd_onehot_bf16`` to the windowed
+    one, each ignored by the other, as in the JAX package."""
+    _check_options(table_shards)
     backend = effective_backend(backend, hash_encode.table_rows(params.features))
     if backend == "windowed":
         return _render_rays_windowed(params, state, rays_o, rays_d, num_fg_sample,
                                      num_bg_sample, step, occlusion_mask, train,
                                      invalid_underground, num_march, bg_z, fused_decoder,
-                                     compact_dead, stage_hook)
+                                     compact_dead, stage_hook, bwd_onehot_bf16)
     fg = render_fore_rays(params, state, rays_o, rays_d, num_fg_sample, step,
-                          occlusion_mask=occlusion_mask, train=train, num_march=num_march)
+                          occlusion_mask=occlusion_mask, train=train, num_march=num_march,
+                          stochastic_grad=stochastic_grad)
     bg = render_bg_rays(params, state, rays_o, rays_d, num_bg_sample, step,
                         occlusion_mask=occlusion_mask, train=train,
-                        invalid_underground=invalid_underground, bg_z=bg_z)
+                        invalid_underground=invalid_underground, bg_z=bg_z,
+                        stochastic_grad=stochastic_grad)
     return _compose_fg_bg(fg, bg, rays_o, rays_d, train)
 
 
 def _render_rays_windowed(params, state, rays_o, rays_d, num_fg_sample, num_bg_sample,
                           step, occlusion_mask, train, invalid_underground, num_march,
-                          bg_z, fused_decoder, compact_dead, stage_hook) -> dict:
+                          bg_z, fused_decoder, compact_dead, stage_hook,
+                          bwd_onehot_bf16=False) -> dict:
     """``render_rays`` through the windowed sorted stream."""
     H = hash_encode.table_rows(params.features)
     B = rays_o.shape[0]
@@ -353,10 +364,10 @@ def _render_rays_windowed(params, state, rays_o, rays_d, num_fg_sample, num_bg_s
     if fused_decoder:
         slab = ft.pack_train_slab(params.decoder, weight_feature(step))
         cols = ft.hash_decode_train(stream.pts, stream.meta, params.features,
-                                    state.resolutions, slab)
+                                    state.resolutions, slab, bwd_bf16=bwd_onehot_bf16)
     else:
         feats = hw.hash_lookup_sorted(stream.pts, stream.meta, params.features,
-                                      state.resolutions)  # [Np, 32]
+                                      state.resolutions, bwd_bf16=bwd_onehot_bf16)
         dirs_s = stream.pts[:, 4:7, :].permute(0, 2, 1).reshape(feats.shape[0], 3)
         cols = decode_columns(params.decoder, feats, dirs_s, weight_feature(step))
     _mark(stage_hook, "decode")
@@ -394,6 +405,56 @@ def field_inference_sigma(params: FieldParams, state: FieldState, samples,
     wf = weight_feature(step).repeat_interleave(2)
     sig = decoder_lib.inference_sigma(params.decoder, feats * wf)
     return sig.reshape(*samples.shape[:-1], 1)
+
+
+def detached(params: FieldParams) -> FieldParams:
+    """``params`` detached: no gradient reaches the tables or the decoder."""
+    return FieldParams(features=params.features.detach(),
+                       decoder={n: {k: v.detach() for k, v in p.items()}
+                                for n, p in params.decoder.items()})
+
+
+def compute_normal(params: FieldParams, state: FieldState, samples, step: torch.Tensor,
+                   backend: str = "xla") -> tuple[torch.Tensor, torch.Tensor]:
+    """Surface normals at world points ``samples`` [..., 3]: minus the
+    normalised gradient of ``field_inference_sigma`` at the fg-contracted
+    points, under the BARF weights of ``step`` -> (normal [..., 3], sigma
+    [..., 1]), neither differentiable. The JAX function takes a ``vmap``
+    of ``value_and_grad`` point by point; the points are independent, so
+    here one ``torch.autograd.grad`` of the summed sigma gives every
+    point's gradient. The params enter detached: a table that requires
+    grad would make the windowed lookup's backward (B4 on the card) build
+    the dense table gradient too, where its dL/du mode is all this needs."""
+    shape = samples.shape
+    frozen = detached(params)
+    with torch.enable_grad():
+        p = samples.detach().reshape(-1, 3).requires_grad_()
+        sigma = field_inference_sigma(frozen, state, contract_fore(state, p), step,
+                                      backend=backend)
+        (grads,) = torch.autograd.grad(sigma.sum(), p)
+    normal = -grads / (torch.linalg.vector_norm(grads, dim=-1, keepdim=True) + 1e-8)
+    return normal.reshape(shape), sigma.detach().reshape(*shape[:-1], 1)
+
+
+def render_normals(params: FieldParams, state: FieldState, rays_o, rays_d, num_sample: int,
+                   step: torch.Tensor, num_march: int = 512, backend: str = "xla"):
+    """Accumulated surface normals of rays [N, 3], mapped to [0, 1] -> [N,
+    3]: occupancy-CDF samples (B1 on the card), ``compute_normal`` at them,
+    and the normals summed under the fg compositing weights (no infinite
+    last interval). ``backend`` is the table's layout, as for
+    ``field_inference_sigma``; the JAX default is "xla", a windowed tile
+    takes "windowed" (``effective_backend``). Not differentiable."""
+    z_vals, dists, valid = sampling.sample_points_grid(
+        rays_o, rays_d, num_sample, state.occupied_grid, inner_corner(state),
+        inner_size(state), num_march=num_march)
+    zero = torch.zeros((), device=rays_o.device)
+    z = torch.where(valid[:, None], z_vals, zero)
+    d = torch.where(valid[:, None], dists, zero)
+    samples = rays_o[:, None, :] + z[..., None] * rays_d[:, None, :]
+    normals, sigma = compute_normal(params, state, samples, step, backend=backend)
+    weights, _ = integrate.integrate_weights(sigma[..., 0], d, rays_d, infinity=False)
+    weights = torch.where(valid[:, None], weights, torch.zeros_like(weights))
+    return (integrate.accumulate(weights, normals) + 1.0) / 2.0
 
 
 def _mark(hook, name: str) -> None:

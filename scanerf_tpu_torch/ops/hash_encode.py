@@ -12,6 +12,14 @@ reference's atomic-add backward) and the analytic dL/dpoints through the
 trilinear weights. It serves tables under 2^14 entries, where the
 windowed layout has no room (``models/field.py::effective_backend``),
 and ``backend="xla"``.
+
+``hash_encode_stoch`` (the ``STOCHASTIC_HASH_GRAD`` option) has the same
+forward and a cheaper backward: each (point, level) sends its whole
+cotangent to one corner drawn with the trilinear weights as
+probabilities, and dL/dpoints comes from one uniformly drawn corner times
+8; both draws come from a hash of the point's float bits, so the
+backward is deterministic and equals the JAX package's up to the order
+of the table gradient's sums.
 """
 
 from __future__ import annotations
@@ -103,3 +111,93 @@ def hash_encode(points: torch.Tensor, features: torch.Tensor,
     L, _, F = features.shape
     out = [_encode_one_level(points, features[lvl], resolutions[lvl]) for lvl in range(L)]
     return torch.stack(out, dim=1).reshape(points.shape[0], L * F)
+
+
+_U_PRIMES = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D)
+
+
+def _corner_sample_u(points: torch.Tensor) -> torch.Tensor:
+    """A uniform in [0, 1] per point from its float bits (the JAX
+    ``_corner_sample_u``): the three coordinates' bits times odd constants
+    mod 2^32, XORed, h ^ (h >> 15), as f32 / 2^32. The uint32 arithmetic
+    runs in int64 with a 32-bit mask after each product; the conversion to
+    f32 rounds to nearest, as the JAX one does."""
+    bits = points.contiguous().view(torch.int32).to(torch.int64) & MASK32
+    h = ((bits[:, 0] * _U_PRIMES[0]) & MASK32) ^ ((bits[:, 1] * _U_PRIMES[1]) & MASK32) \
+        ^ ((bits[:, 2] * _U_PRIMES[2]) & MASK32)
+    h = h ^ (h >> 15)
+    return h.to(torch.float32) / 4294967296.0
+
+
+def _stoch_level_bwd(points, u_sample, table, resolution, g_l):
+    """One level of ``hash_encode_stoch``'s backward -> (d_points [N, 3],
+    d_table [H, F]), in the JAX ``level_bwd``'s order of operations."""
+    H = table.shape[0]
+    v = (points + 2.0) / 4.0 * (resolution.to(points.dtype) - 1.0)
+    bl = torch.floor(v)
+    off = v - bl
+    ib = bl.to(torch.int64)
+    pair = torch.arange(2, device=points.device)
+    hx, hy, hz = (((((ib[:, a:a + 1] + pair) & MASK32) * PRIMES[a]) & MASK32)
+                  for a in range(3))  # [N, 2]
+    cx, cy, cz = (torch.as_tensor(CORNERS[:, a], device=points.device) for a in range(3))
+    fx, fy, fz = (torch.stack([1 - off[:, a], off[:, a]], dim=-1) for a in range(3))
+    w = fx[:, cx] * fy[:, cy] * fz[:, cz]  # [N, 8]
+    # the corner drawn with the weights: a sequential f32 prefix sum (the JAX
+    # cumsum's order; torch.cumsum on the CPU sums in f64)
+    cdf = [w[:, 0]]
+    for k in range(1, 8):
+        cdf.append(cdf[-1] + w[:, k])
+    cdf = torch.stack(cdf, dim=1)
+    corner_id = (cdf < u_sample[:, None] * cdf[:, -1:]).sum(dim=1).clamp(0, 7)
+
+    def corner_hash(cid):
+        bits = [(cid >> 2) & 1, (cid >> 1) & 1, cid & 1]
+        sel = [torch.gather(hh, 1, b[:, None])[:, 0] for hh, b in zip((hx, hy, hz), bits)]
+        return (sel[0] ^ sel[1] ^ sel[2]) & (H - 1)
+
+    d_table = torch.zeros_like(table, dtype=g_l.dtype)
+    d_table.index_add_(0, corner_hash(corner_id), g_l)
+    # dL/dpoints from one uniformly drawn corner, times 8
+    c2 = torch.floor(u_sample * 7.9999).to(torch.int64)
+    T_c = table[corner_hash(c2)]  # [N, F]
+    gv = T_c[:, 0] * g_l[:, 0] + T_c[:, 1] * g_l[:, 1]
+    b2 = [((c2 >> s) & 1).to(points.dtype) for s in (2, 1, 0)]
+    wc = [b * off[:, a] + (1 - b) * (1 - off[:, a]) for a, b in enumerate(b2)]
+    sg = [2.0 * b - 1.0 for b in b2]
+    dscale = (resolution.to(points.dtype) - 1.0) / 4.0
+    d_points = torch.stack([8.0 * gv * sg[0] * wc[1] * wc[2] * dscale[0],
+                            8.0 * gv * wc[0] * sg[1] * wc[2] * dscale[1],
+                            8.0 * gv * wc[0] * wc[1] * sg[2] * dscale[2]], dim=-1)
+    return d_points, d_table
+
+
+class _HashEncodeStoch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points, features, resolutions):
+        ctx.save_for_backward(points, features, resolutions)
+        return hash_encode(points, features, resolutions)
+
+    @staticmethod
+    def backward(ctx, g):
+        points, features, resolutions = ctx.saved_tensors
+        f3 = as_3d(features)
+        L, _, F = f3.shape
+        g3 = g.reshape(points.shape[0], L, F)
+        u_sample = _corner_sample_u(points)
+        d_points = torch.zeros_like(points)
+        d_tables = []
+        for lvl in range(L):
+            dp, dt = _stoch_level_bwd(points, u_sample, f3[lvl], resolutions[lvl], g3[:, lvl])
+            d_points = d_points + dp
+            d_tables.append(dt)
+        return d_points, torch.stack(d_tables).reshape(features.shape), None
+
+
+def hash_encode_stoch(points: torch.Tensor, features: torch.Tensor,
+                      resolutions: torch.Tensor) -> torch.Tensor:
+    """``hash_encode`` with the stochastic-corner backward (module
+    docstring): the forward is exact; the table gradient of each (point,
+    level) lands whole on one corner drawn by the trilinear weights, and
+    dL/dpoints is 8 times one uniformly drawn corner's term."""
+    return _HashEncodeStoch.apply(points, features, resolutions)

@@ -30,7 +30,10 @@ _ft_fwd_kernel`` (B5, launched at fused_train.py:348) and ``_ft_bwd_kernel``
   shared memory (entries no row touches stay zero, as the JAX kernel zeroes
   unvisited blocks), and writes dL/du (dpts rows 0-2).
   ``decoder_bwd_plain`` then ``lookup_bwd_plain`` is the same composition
-  in plain PyTorch.
+  in plain PyTorch. With ``bwd_bf16`` (the JAX ``onehot_bf16``,
+  fused_train.py:383-468) B4's kernel runs in its bf16 mode: each
+  contribution to the table gradient is rounded to bf16 before it is
+  summed.
 
 The atomics add in an order that changes from run to run, so B6's table
 and slab gradients differ between runs in the last bits of f32.
@@ -55,7 +58,7 @@ from scanerf_tpu_torch.ops.kernels.fused_render import (
     B_DIR0, B_DIR1, B_DIR2, B_HEAD, B_SP0, B_SP1, DIR0_W, DIR1_W, DIR2_W,
     HEAD_W, PSLAB, SP0_W, SP1_W)
 from scanerf_tpu_torch.ops.kernels.hash_encode import (
-    CHUNK, W, check_tensor, lookup_fwd_plain, scatter_bwd)
+    CHUNK, W, check_tensor, lookup_bwd_plain, lookup_fwd_plain, scatter_bwd)
 from scanerf_tpu_torch.utils.sh import sh_encoding
 
 # (offset, [out, in] shape) of each weight matrix in the slab, then biases
@@ -125,11 +128,18 @@ def train_fwd_plain(pts, meta, features, resolutions, pslab, NW: int):
     return cols, feats.reshape(NC, CHUNK, L, 2).permute(0, 2, 3, 1)
 
 
-def train_bwd_plain(pts, meta, features, resolutions, pslab, feats, g, NW: int):
+def train_bwd_plain(pts, meta, features, resolutions, pslab, feats, g, NW: int,
+                    bwd_bf16: bool = False):
     """Plain PyTorch version of B6 -> (dpts [NC, 8, CHUNK], d_features like
     ``features``, d_pslab [PSLAB]): the cotangents of ``train_fwd_plain``'s
     columns under ``g`` [Np, 8], by autograd through it (``feats``, the
-    forward's residual, is recomputed rather than read)."""
+    forward's residual, is recomputed rather than read). With
+    ``bwd_bf16``, ``decoder_bwd_plain`` then ``lookup_bwd_plain`` in its
+    bf16 mode."""
+    if bwd_bf16:
+        d_feats, dpts, d_pslab = decoder_bwd_plain(pts, meta, pslab, feats, g)
+        dpts_u, d_features = lookup_bwd_plain(pts, features, resolutions, d_feats, NW, "bf16")
+        return dpts + dpts_u, d_features, d_pslab
     with torch.enable_grad():
         p = pts.detach().requires_grad_()
         f = features.detach().requires_grad_()
@@ -230,19 +240,22 @@ def decoder_bwd(pts, meta, pslab, feats, g):
     return d_feats, dpts, d_pslab
 
 
-def train_bwd(pts, meta, features, resolutions, pslab, feats, g, NW: int, adds=None):
+def train_bwd(pts, meta, features, resolutions, pslab, feats, g, NW: int, adds=None,
+              bwd_bf16: bool = False):
     """B6 wrapper -> (dpts [NC, 8, CHUNK], d_features [L, H*2], d_pslab
     [PSLAB]). CPU tensors take ``train_bwd_plain``; CUDA tensors launch
     B6a (``decoder_bwd``), then B4's kernel for the table gradient and
-    dL/du (``hash_encode.scatter_bwd``; ``adds``: see there)."""
+    dL/du (``hash_encode.scatter_bwd``, in its bf16 mode with
+    ``bwd_bf16``; ``adds``: see there)."""
     if pts.device.type == "cpu":
-        return train_bwd_plain(pts, meta, features, resolutions, pslab, feats, g, NW)
+        return train_bwd_plain(pts, meta, features, resolutions, pslab, feats, g, NW,
+                               bwd_bf16)
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
     _check_stream(pts, meta, features, resolutions, pslab, NW)
     d_feats, dpts, d_pslab = decoder_bwd(pts, meta, pslab, feats, g)
     d_features = scatter_bwd(pts, meta, features, resolutions, d_feats, NW, dpts, 3, adds,
-                             g_layout="chunks")
+                             g_layout="chunks", mode="bf16" if bwd_bf16 else "exact")
     train_bwd.launches += 1
     return dpts, d_features, d_pslab
 
@@ -252,28 +265,32 @@ train_bwd.launches = 0
 
 class _HashDecodeTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, pts, meta, features, resolutions, pslab):
+    def forward(ctx, pts, meta, features, resolutions, pslab, bwd_bf16):
         NW = features.shape[1] // (2 * W)
         cols, feats = train_fwd(pts, meta, features, resolutions, pslab, NW)
         ctx.save_for_backward(pts, meta, features, resolutions, pslab, feats)
-        ctx.nw = NW
+        ctx.nw, ctx.bwd_bf16 = NW, bwd_bf16
         return cols
 
     @staticmethod
     def backward(ctx, g):
         pts, meta, features, resolutions, pslab, feats = ctx.saved_tensors
         dpts, d_features, d_pslab = train_bwd(pts, meta, features, resolutions, pslab,
-                                              feats, g.contiguous(), ctx.nw)
-        return dpts, None, d_features, None, d_pslab
+                                              feats, g.contiguous(), ctx.nw,
+                                              bwd_bf16=ctx.bwd_bf16)
+        return dpts, None, d_features, None, d_pslab, None
 
 
-def hash_decode_train(pts, meta, features, resolutions, pslab) -> torch.Tensor:
+def hash_decode_train(pts, meta, features, resolutions, pslab,
+                      bwd_bf16: bool = False) -> torch.Tensor:
     """Fused lookup + decode of a padded sorted stream (one table, flat
     [L, H*2] f32) -> cols [Np, 8], differentiable in pts (rows 0-2 and
-    4-6), the table and the slab from ``pack_train_slab``. Unlike the JAX
-    function it takes no ``visited`` blocks: the scatter into a zeroed
-    gradient leaves unvisited blocks zero by itself."""
+    4-6), the table and the slab from ``pack_train_slab``; ``bwd_bf16``
+    rounds the table gradient's contributions to bf16 (the JAX
+    ``onehot_bf16``). Unlike the JAX function it takes no ``visited``
+    blocks: the scatter into a zeroed gradient leaves unvisited blocks
+    zero by itself."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (pts, features, pslab)):
-        return _HashDecodeTrain.apply(pts, meta, features, resolutions, pslab)
+        return _HashDecodeTrain.apply(pts, meta, features, resolutions, pslab, bwd_bf16)
     NW = features.shape[1] // (2 * W)
     return train_fwd(pts, meta, features, resolutions, pslab, NW, want_feats=False)[0]

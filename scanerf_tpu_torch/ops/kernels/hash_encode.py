@@ -32,8 +32,14 @@ backward is B4 (the table gradient summed per chunk and level in shared
 memory, then added to a zeroed dense buffer, so unvisited blocks stay
 exactly zero, and the analytic dL/du in dpts rows 0-2; f32 tables only).
 B6's wrapper launches B4's kernel too, through ``scatter_bwd``, for its
-table gradient. Device memory bounds B3 and, by its design, B4 (see the
-source's note).
+table gradient. B4 has two more modes, compile-time flags of the same
+kernel: ``bf16`` rounds each (row, corner, feature) contribution w * g to
+bf16 before it is summed (the JAX ``onehot_bf16`` option, whose one-hot
+operand is exact in bf16 and whose weighted operand rounds,
+hash_encode.py:996-1016; sums and dL/du stay f32), and dL/du alone, which
+the autograd backward takes when the tables need no gradient (surface
+normals): no table gradient is allocated or written. Device memory bounds
+B3 and, by its design, B4 (see the source's note).
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ W = 512  # entries per window
 WB = 32  # windows per block
 CHUNK = 1024  # stream rows per chunk
 SUBT = CHUNK // 128  # 128-row subtiles per chunk (rows of ``meta``)
+BWD_MODES = ("exact", "bf16", "du")  # B4's modes: csrc/hash_encode.cu's BwdMode, in order
 
 
 @functools.cache
@@ -370,28 +377,37 @@ def lookup_fwd_plain(pts, features, resolutions, NW: int) -> torch.Tensor:
     return torch.where(real[:, None], feats, torch.zeros_like(feats))
 
 
-def lookup_bwd_plain(pts, features, resolutions, g, NW: int):
+def lookup_bwd_plain(pts, features, resolutions, g, NW: int, mode: str = "exact"):
     """Plain PyTorch version of B4: the cotangents of ``lookup_fwd_plain``
     under ``g`` [Np, L*2], written out (not by autograd) -> (dpts [NC, 8,
     CHUNK] with dL/du in rows 0-2 and zeros in rows 3-7, d_features like
     ``features``, f32). The table gradient is an ``index_add_`` of each
-    corner's trilinear weight times the row's cotangent pair; dL/du sums,
-    per level and corner, the derivative of the weight along each axis
-    times (resolution - 1) times the cotangent's dot with the corner's
-    features."""
+    corner's trilinear weight times the row's cotangent pair (``mode``
+    "bf16": each such product rounded to bf16 first; "du": no table
+    gradient, d_features None); dL/du sums, per level and corner, the
+    derivative of the weight along each axis times (resolution - 1) times
+    the cotangent's dot with the corner's features."""
+    if mode not in BWD_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
     f3 = as_3d(features)
     L = f3.shape[0]
     u, wid, real = _stream_rows(pts, NW)
     g3 = torch.where(real[:, None], g, torch.zeros_like(g)).reshape(-1, L, 2)
     sign = 2.0 * torch.as_tensor(CORNERS, device=u.device).to(u.dtype) - 1.0  # [8, 3]
-    d3 = torch.zeros(f3.shape, dtype=torch.float32, device=u.device)
+    d3 = None if mode == "du" else torch.zeros(f3.shape, dtype=torch.float32, device=u.device)
     du = torch.zeros_like(u)
     for lvl in range(L):
         idx, fac = _level_corners(u, wid, resolutions[lvl])  # [Np, 8], [Np, 8, 3]
         scale = resolutions[lvl].to(u.dtype) - 1.0
-        wgt = torch.prod(fac, dim=-1)  # [Np, 8]
+        # x * y * z left to right, as the kernel multiplies: a reduction may
+        # take another order on CUDA, and an ulp of w moves w * g's bf16 rounding
+        wgt = fac[..., 0] * fac[..., 1] * fac[..., 2]  # [Np, 8]
         gl = g3[:, lvl]  # [Np, 2]
-        d3[lvl].index_add_(0, idx.reshape(-1), (wgt[..., None] * gl[:, None, :]).reshape(-1, 2))
+        if d3 is not None:
+            contrib = wgt[..., None] * gl[:, None, :]
+            if mode == "bf16":
+                contrib = contrib.to(torch.bfloat16).to(torch.float32)
+            d3[lvl].index_add_(0, idx.reshape(-1), contrib.reshape(-1, 2))
         dot = (f3[lvl][idx].to(torch.float32) * gl[:, None, :]).sum(dim=-1)  # [Np, 8]
         others = torch.stack([fac[..., 1] * fac[..., 2], fac[..., 0] * fac[..., 2],
                               fac[..., 0] * fac[..., 1]], dim=-1)  # d wgt / d off
@@ -399,7 +415,7 @@ def lookup_bwd_plain(pts, features, resolutions, g, NW: int):
     NC = pts.shape[0]
     dpts = torch.zeros_like(pts)
     dpts[:, 0:3, :] = du.reshape(NC, CHUNK, 3).permute(0, 2, 1)
-    return dpts, d3.reshape(features.shape)
+    return dpts, None if d3 is None else d3.reshape(features.shape)
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -454,14 +470,20 @@ lookup_fwd.launches = 0
 
 
 def scatter_bwd(pts, meta, features, resolutions, g, NW: int, dpts, own_rows: int,
-                adds=None, g_layout: str = "rows"):
+                adds=None, g_layout: str = "rows", mode: str = "exact"):
     """Launch B4's kernel, the table scatter and dL/du, on CUDA tensors ->
-    d_features [L, NW*512*2] f32; writes dL/du into dpts rows 0-2 and, with
-    ``own_rows`` 8, zeros into rows 3-7 (with 3 it leaves them to the
-    caller). ``g`` is the features' cotangent, [Np, L*2] (``g_layout``
-    "rows") or [NC, L*2, CHUNK] ("chunks"). With ``adds``, an int64 [1]
-    tensor, the kernel adds to it the f32 elements it added to the table
-    gradient with global atomics. Counts no launch: its callers do."""
+    d_features [L, NW*512*2] f32 (None in ``mode`` "du"); writes dL/du
+    into dpts rows 0-2 and, with ``own_rows`` 8, zeros into rows 3-7 (with
+    3 it leaves them to the caller). ``g`` is the features' cotangent,
+    [Np, L*2] (``g_layout`` "rows") or [NC, L*2, CHUNK] ("chunks").
+    ``mode``: "exact", "bf16" (each contribution rounded to bf16 before it
+    is summed) or "du" (dL/du alone: no table gradient). With ``adds``, an
+    int64 [1] tensor, the kernel adds to it the f32 elements it added to
+    the table gradient with global atomics. Counts every launch of B4's
+    kernel, whichever wrapper calls it (``lookup_bwd``, B6's
+    ``train_bwd``), in ``launches[mode]``."""
+    if mode not in BWD_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
     _check_lookup(pts, meta, features, resolutions, NW)
     NC, L = pts.shape[0], resolutions.shape[0]
     if g_layout == "rows":
@@ -473,62 +495,73 @@ def scatter_bwd(pts, meta, features, resolutions, g, NW: int, dpts, own_rows: in
     check_tensor("dpts", dpts, torch.float32, tuple(pts.shape), pts.device)
     if adds is not None:
         check_tensor("adds", adds, torch.int64, (1,), pts.device)
-    d_features = torch.zeros_like(features)
+    du = mode == "du"
+    d_features = None if du else torch.zeros_like(features)
     f = _lookup_fn("scanerf_lookup_bwd", [_P, _P, _P, _LL, _I, _P, _P, _I, _I, _I, _I, _I,
-                                          _P, _P, _P, _P])
+                                          _I, _P, _P, _P, _P])
     P = _build.ptr
     err = f(P(pts), P(meta), P(features), features.shape[1], L, P(resolutions), P(g), g_row,
-            g_feat, NW, NC, own_rows, P(d_features), P(dpts),
-            P(adds) if adds is not None else None, _build.stream_ptr(pts))
+            g_feat, NW, NC, own_rows, BWD_MODES.index(mode),
+            None if du else P(d_features), P(dpts),
+            P(adds) if adds is not None and not du else None, _build.stream_ptr(pts))
     _build.check(err, "scanerf_lookup_bwd")
+    scatter_bwd.launches[mode] += 1
     return d_features
 
 
-def lookup_bwd(pts, meta, features, resolutions, g, NW: int, adds=None):
-    """B4 wrapper -> (dpts [NC, 8, CHUNK], d_features [L, NW*512*2] f32).
-    CPU tensors take ``lookup_bwd_plain``; CUDA tensors launch the kernel
-    (``adds``: see ``scatter_bwd``). Tables must be f32 (bf16 tables are
-    for inference)."""
+scatter_bwd.launches = dict.fromkeys(BWD_MODES, 0)
+
+
+def lookup_bwd(pts, meta, features, resolutions, g, NW: int, adds=None,
+               mode: str = "exact"):
+    """B4 wrapper -> (dpts [NC, 8, CHUNK], d_features [L, NW*512*2] f32, or
+    None in ``mode`` "du"). CPU tensors take ``lookup_bwd_plain``; CUDA
+    tensors launch the kernel (``adds``, ``mode`` and the launch counts: see
+    ``scatter_bwd``).
+    Tables must be f32 (bf16 tables are for inference)."""
     if features.dtype != torch.float32:
         raise ValueError(f"the lookup's backward needs f32 tables, got {features.dtype}")
     if pts.device.type == "cpu":
-        return lookup_bwd_plain(pts, features, resolutions, g, NW)
+        return lookup_bwd_plain(pts, features, resolutions, g, NW, mode)
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
     dpts = torch.empty_like(pts)
-    d_features = scatter_bwd(pts, meta, features, resolutions, g, NW, dpts, 8, adds)
-    lookup_bwd.launches += 1
+    d_features = scatter_bwd(pts, meta, features, resolutions, g, NW, dpts, 8, adds,
+                             mode=mode)
     return dpts, d_features
-
-
-lookup_bwd.launches = 0
 
 
 class _HashLookupSorted(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, pts, meta, features, resolutions):
+    def forward(ctx, pts, meta, features, resolutions, bwd_bf16):
         NW = features.shape[1] // (2 * W)
         ctx.save_for_backward(pts, meta, features, resolutions)
-        ctx.nw = NW
+        ctx.nw, ctx.bwd_bf16 = NW, bwd_bf16
         return lookup_fwd(pts, meta, features, resolutions, NW)
 
     @staticmethod
     def backward(ctx, g):
         pts, meta, features, resolutions = ctx.saved_tensors
+        # tables that need no gradient (surface normals) take B4's dL/du mode:
+        # no table gradient is allocated
+        mode = ("bf16" if ctx.bwd_bf16 else "exact") if ctx.needs_input_grad[2] else "du"
         dpts, d_features = lookup_bwd(pts, meta, features, resolutions, g.contiguous(),
-                                      ctx.nw)
-        return dpts, None, d_features, None
+                                      ctx.nw, mode=mode)
+        return dpts, None, d_features, None, None
 
 
-def hash_lookup_sorted(pts, meta, features, resolutions) -> torch.Tensor:
+def hash_lookup_sorted(pts, meta, features, resolutions, bwd_bf16: bool = False) -> torch.Tensor:
     """Windowed hash features of a padded sorted stream (``pts``/``meta``
     from ``sort_pack`` or ``sort_pack_tables``) over the flat [L, NW*512*2]
     table (stack) -> [Np, L*2] f32 in stream order: B3 forward, B4
     backward. Differentiable in pts (rows 0-2: dL/du; the view directions
-    in rows 4-6 get no cotangent here) and in f32 tables. Unlike the JAX
-    function it takes no ``visited`` blocks: the scatter into a zeroed
-    gradient leaves unvisited blocks zero by itself."""
-    return _HashLookupSorted.apply(pts, meta, features, resolutions)
+    in rows 4-6 get no cotangent here) and in f32 tables; ``bwd_bf16``
+    rounds the table gradient's contributions to bf16 (the JAX
+    ``onehot_bf16``). A table that does not require grad gets no gradient
+    and B4 runs in its dL/du mode. Unlike the JAX function it takes no
+    ``visited`` blocks: the scatter into a zeroed gradient leaves
+    unvisited blocks zero by itself."""
+    return _HashLookupSorted.apply(pts, meta, features, resolutions, bwd_bf16)
 
 
 def hash_encode_windowed(points, features, resolutions, tile: int = 0,

@@ -5,8 +5,8 @@ of ``scanerf_tpu/train/checkpoint.py``).
   ``.npz`` under the JAX package's keys (the pytree paths of its
   ``save_checkpoint``; the mapping is ``convert.py``'s): the tables, the
   decoder, ``se3_refine``, each optimizer group's Adam moments and
-  counts and its schedule's count, the field state, the ADMM state and
-  the step. A checkpoint written by either package resumes in the other.
+  counts (per element under sparse Adam) and its schedule's count, the
+  field state, the ADMM state and the step. A checkpoint written by either package resumes in the other.
 - **Export**, the reference layout: ``feature.npz`` (fp16 tables,
   occupancy grid, doubled bbox, level resolutions, hash layout),
   ``decoder.npz`` (the packed 13994-float decoder) and ``cams.npz``
@@ -47,7 +47,8 @@ def load_checkpoint(path: str, template: tile_lib.TrainState,
     cam_enable = any(g["name"] == "cam" for g in template.optimizer.param_groups)
     with np.load(path, allow_pickle=False) as data:
         return convert.state_from_arrays(data.__getitem__, cam_enable, device,
-                                         like=convert.state_like(template))
+                                         like=convert.state_like(template),
+                                         sparse_adam=template.hash_optimizer is not None)
 
 
 def latest_checkpoint(ckp_dir: str, tile_idx: int) -> str | None:

@@ -14,7 +14,9 @@ refinements ``se3_refine``, updated by the three param groups of one
 each group's rate an ``exp_window_schedule`` that ends at 0.1x the base
 rate at ``total_step``, read at the group's count before the step (as
 optax's ``scale_by_learning_rate``), with the bias correction at the count
-after it (as ``scale_by_adam``).
+after it (as ``scale_by_adam``). With ``sparse_adam`` the hash tables
+leave the fused Adam for ``train/sparse_adam.py::SparseAdam`` (per-element
+counts, zero gradients skipped), the state's ``hash_optimizer``.
 
 The step samples 2x2 pixel patches (one patch set for every camera),
 renders fg + bg with ``models/field.py::render_rays`` and applies the loss
@@ -43,6 +45,7 @@ from scanerf_tpu_torch.train import cameras as cam_lib
 from scanerf_tpu_torch.train import losses
 from scanerf_tpu_torch.train.cameras import Cameras
 from scanerf_tpu_torch.train.scheduler import exp_window_schedule
+from scanerf_tpu_torch.train.sparse_adam import SparseAdam
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,9 +56,9 @@ class TrainConfig:
     ``RUN_CAP_FRAC``: bitwise-equal ways of sorting the stream on a TPU).
     ``hash_backend`` defaults to "windowed", the production path (the JAX
     dataclass defaults to "xla", the global hash, for its CPU oracles;
-    tables under 2^14 entries take the global hash either way). Options
-    the port does not
-    have raise ``NotImplementedError`` in the step."""
+    tables under 2^14 entries take the global hash either way). Table and
+    ray sharding, which need several devices, raise
+    ``NotImplementedError`` in the step."""
 
     num_sample: int = 128
     num_bg_sample: int = 128
@@ -165,6 +168,11 @@ class TrainState:
     field_state: FieldState
     admm: AdmmState
     step: int
+    # the tables' SparseAdam with ``sparse_adam`` (then not in ``optimizer``)
+    hash_optimizer: SparseAdam | None = None
+
+    def optimizers(self) -> list:
+        return [self.optimizer] + ([self.hash_optimizer] if self.hash_optimizer else [])
 
 
 @dataclasses.dataclass
@@ -205,18 +213,18 @@ def _schedules(tc: TrainConfig) -> dict:
 
 
 def build_optimizer(tc: TrainConfig, params: TileParams) -> torch.optim.Adam:
-    """The three Adam groups of the JAX ``build_optimizer`` over the
-    tensors of ``params``, fused (on CUDA and on the CPU). Each group
+    """The Adam groups of the JAX ``build_optimizer`` over the tensors of
+    ``params``, fused (on CUDA and on the CPU): hash (unless
+    ``sparse_adam``: ``build_hash_optimizer``), decoder and cam. Each group
     carries its name and ``count``, optax's update count, at which
     ``apply_gradients`` reads its rate; without ``cam_enable`` the cameras
     are not optimized (optax's ``set_to_zero``)."""
-    if tc.sparse_adam:
-        raise NotImplementedError("sparse Adam is not ported yet: ROADMAP.md "
-                                  "queue A, item 'Pruning and sparse Adam'")
     leaves = group_leaves(params)
-    groups = [dict(params=leaves["hash"], name="hash", betas=(0.9, 0.99), eps=1e-15),
-              dict(params=leaves["decoder"], name="decoder", betas=(0.9, 0.999), eps=1e-8,
+    groups = [dict(params=leaves["decoder"], name="decoder", betas=(0.9, 0.999), eps=1e-8,
                    weight_decay=1e-6)]
+    if not tc.sparse_adam:
+        groups.insert(0, dict(params=leaves["hash"], name="hash", betas=(0.9, 0.99),
+                              eps=1e-15))
     if tc.cam_enable:
         groups.append(dict(params=leaves["cam"], name="cam", betas=(0.9, 0.999), eps=1e-8))
     for g in groups:
@@ -224,19 +232,29 @@ def build_optimizer(tc: TrainConfig, params: TileParams) -> torch.optim.Adam:
     return torch.optim.Adam(groups, lr=0.0, fused=True)
 
 
+def build_hash_optimizer(tc: TrainConfig, params: TileParams) -> SparseAdam | None:
+    """With ``sparse_adam``, the tables' ``SparseAdam`` (b1 0.9, b2 0.99,
+    eps 1e-15), one group named "hash" with its ``count``; else None."""
+    if not tc.sparse_adam:
+        return None
+    opt = SparseAdam(group_leaves(params)["hash"], betas=(0.9, 0.99), eps=1e-15)
+    opt.param_groups[0].update(name="hash", count=0)
+    return opt
+
+
 @torch.no_grad()
 def apply_gradients(state: TrainState, grads: dict, tc: TrainConfig) -> None:
-    """One update of ``state.optimizer`` in place. ``grads`` maps each
+    """One update of the state's optimizers in place. ``grads`` maps each
     group to the gradients of ``group_leaves(state.params)``."""
     sched = _schedules(tc)
-    opt = state.optimizer
-    for group in opt.param_groups:
-        group["lr"] = sched[group["name"]](group["count"])
-        group["count"] += 1
-        for p, g in zip(group["params"], grads[group["name"]]):
-            p.grad = g.contiguous()  # the fused update wants the param's strides
-    opt.step()
-    opt.zero_grad(set_to_none=True)
+    for opt in state.optimizers():
+        for group in opt.param_groups:
+            group["lr"] = sched[group["name"]](group["count"])
+            group["count"] += 1
+            for p, g in zip(group["params"], grads[group["name"]]):
+                p.grad = g.contiguous()  # the fused update wants the param's strides
+        opt.step()
+        opt.zero_grad(set_to_none=True)
 
 
 def create_train_state(field_params: FieldParams, field_state: FieldState,
@@ -255,7 +273,7 @@ def create_train_state(field_params: FieldParams, field_state: FieldState,
                        delta_se3=torch.zeros((num_camera, 6), device=dev),
                        overlap_flags=torch.zeros((num_camera,), dtype=torch.bool, device=dev),
                        rho=torch.full((6,), float(tc.rho), device=dev)),
-        step=0)
+        step=0, hash_optimizer=build_hash_optimizer(tc, params))
 
 
 # ---------------------------------------------------------------------------
@@ -380,12 +398,10 @@ def _warp_loss(params, field_state, data, out, gt_color, valid, stepf, tc):
 
     B, K = nei_views.shape
     with torch.no_grad():
-        frozen = FieldParams(features=params.field.features.detach(),
-                             decoder={n: {k: v.detach() for k, v in p.items()}
-                                      for n, p in params.field.decoder.items()})
-        nei_out = _render(frozen, field_state, nei_o.reshape(-1, 3), nei_d.reshape(-1, 3),
-                          tc.warp_vis_sample, tc.warp_vis_bg_sample, stepf, tc,
-                          train=False, num_march=tc.warp_vis_march)
+        nei_out = _render(field_lib.detached(params.field), field_state,
+                          nei_o.reshape(-1, 3), nei_d.reshape(-1, 3), tc.warp_vis_sample,
+                          tc.warp_vis_bg_sample, stepf, tc, train=False,
+                          num_march=tc.warp_vis_march)
     voxel = (field_state.bbox_size
              / field_state.resolutions[-1].max().to(torch.float32)).max()
     vis = torch.exp(-tc.alpha * (nei_out["pred_depth"].reshape(B, K, 1) - proj_depth).abs()

@@ -585,8 +585,10 @@ def test_optimizer_update_matches_optax(cam_start):
 
 def test_train_entry_points_need_cuda_and_unported_options_raise():
     """Without CUDA the training entry points (the evaluation renders
-    too) raise unless asked for the CPU; options the port does not have
-    yet raise NotImplementedError naming their ROADMAP item."""
+    too) raise unless asked for the CPU; the options that need several
+    devices (sharded tables, sharded rays) raise NotImplementedError
+    naming their ROADMAP item (the single-device knobs are held in
+    tests/test_torch_knobs.py)."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is valid")
     gen = torch.Generator().manual_seed(0)
@@ -611,12 +613,11 @@ def test_train_entry_points_need_cuda_and_unported_options_raise():
         convert.train_state(_tiny_jax_state(jtile.TrainConfig(), n_cam=2))
     o = torch.zeros(4, 3)
     d = torch.ones(4, 3)
-    for kw in (dict(table_shards=2), dict(stochastic_grad=True),
-               dict(bwd_onehot_bf16=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfield.render_rays(params, fs, o, d, 4, 4, torch.tensor(0.0), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttile.build_optimizer(ttile.TrainConfig(sparse_adam=True), state.params)
+        tfield.render_rays(params, fs, o, d, 4, 4, torch.tensor(0.0), table_shards=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttile.compute_losses(state.params, fs, state.admm, None, None, None, 0,
+                             ttile.TrainConfig(ray_shards=2))
 
 
 @pytest.mark.parametrize("cam_enable", [True, False])
