@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Six phases, driven through the port's entry points, with the kernels'
+Seven phases, driven through the port's entry points, with the kernels'
 launch counts set to 0 just before each counted run and read just after:
 render and training, each in both decoder configurations, fused (the
 default) and unfused (slice 3: ``fuse_decoder=False`` /
 ``fused_decoder=False``); then one tile from a scene directory to an
 export; then a city of tiles through the multi-tile ADMM trainer; then
-serving the city's exports; then the single-device extras of slice 10.
+serving the city's exports; then the single-device extras of slice 10;
+then the multi-device paths of slice 11 on two ranks that share the card.
 
 Render (slice 1). Builds the port's CUDA kernels from csrc/, writes a
 4-tile scene in the reference export layout (16 levels x 2 features, H =
@@ -145,6 +146,32 @@ on two copies of the city's scene directory, on the card and on the
 CPU, whose tile_info.txt, training_views.txt and tiles.obj must be
 identical.
 
+Multi (slice 11), last: two ranks spawned with ``torch.multiprocessing``
+(spawn), both on cuda:0 over the ``gloo`` backend (NCCL refuses two ranks
+on one device), after the kernels are built in this process. (a) One
+tile's table sharded over the two ranks at config/paper_2p24_2chip.yaml's
+operating point (bench.py's sphere scene, H = 2^24, TABLE_SHARDS 2, 2^14
+rays, 128 + 128 samples, M 512, the full recipe, windowed, the unfused
+decode the sharded lookup takes): the first step against the unsharded
+2^24 step on the same batch, which each rank computes alone (losses,
+pose and decoder gradients, its table-gradient shard against its slice
+of the whole gradient, at the train phase's fused-against-unfused
+limits); one warm-up and three timed steps (rays/s and the seconds in
+collectives); B3 and B4 (exact, and bf16 as HASH_BWD_BF16 launches it in
+the sharded step) on the rank's localized stream against their plain
+versions (rank 1's ``wbase`` is not 0), the other rank's chunks exactly
+zero, and timed. (b) Ray data parallelism at bench.py's width (H = 2^21,
+full recipe, fused): each rank's gradients alone on its batch, then one
+``build_dp_step`` step whose averaged gradients are held against their
+mean and whose replicas must end equal bit for bit. (c) The tiles mesh:
+the city phase's 2 x 2 city by ``Trainer`` on the two ranks, two tiles
+each, one round of 5 steps; its consensus against one process's
+``consensus_update`` over the four tiles' poses (1e-6). (d) The render
+phase's overhead view at 256x128, ``render_image(sharded=True)`` over the
+two ranks, fused and unfused, against the one-rank frame (RENDER_TOL).
+A failed check in any rank ends the script non-zero; the parent checks
+every rank's exit code.
+
 It prints the card's name and power limit (nvidia-smi), each phase's
 seconds, and, before the last line, one JSON line ``{"kernels": [...]}``
 with B1-B7: per kernel, its launches in the counted runs, max error
@@ -156,8 +183,11 @@ B3's row its numbers at the pruning query's shape (``pruning_query``)
 and at the staged encode's (``staged``), B7's at an
 early-termination slab's (``early_slab``), every row its launches in the
 extras phase (``extras_launches``), and B4's row its dL/du-only and bf16
-modes on a training step's stream (``du_only``, ``bf16``). The last line is ``{"ok": true,
-"device": {...}}``.
+modes on a training step's stream (``du_only``, ``bf16``), every row its
+launches over both ranks of the multi phase (``multi_launches``), and
+B3's and B4's rows their numbers on a table shard (``sharded``: rank 1's
+times, the bound over the owned chunks' bytes). The last line is
+``{"ok": true, "device": {...}}``.
 
 Any failed build, launch or comparison ends the script with a non-zero
 exit code before the last line. Without CUDA it exits 1 and prints no
@@ -1295,20 +1325,26 @@ def city_phase(serve=None) -> dict:
         c.launches = 0
     round_s: list[float] = []
     rays_per_step = [0]
-    admm_round = tp.admm_round
+    build_round = tp.build_admm_round
 
-    def timed_round(*a, **kw):  # the round's steps and consensus, synchronised
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = admm_round(*a, **kw)
-        torch.cuda.synchronize()
-        round_s.append(time.perf_counter() - t)
-        n = len(a[0]) * a[5] * rays_per_step[0]
-        print(f"city round {len(round_s)}: {round_s[-1]:.2f} s, {n / round_s[-1]:.0f} "
-              f"training rays/s ({len(a[0])} tiles x {a[5]} steps x {rays_per_step[0]} rays)")
-        return out
+    def timed_build(mesh, tc, n_inner, *a, **kw):  # the Trainer's rounds, each timed
+        round_fn = build_round(mesh, tc, n_inner, *a, **kw)
 
-    tp.admm_round = timed_round
+        def timed_round(tiles, datas, generators):  # steps and consensus, synchronised
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = round_fn(tiles, datas, generators)
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t)
+            n = len(tiles.states) * n_inner * rays_per_step[0]
+            print(f"city round {len(round_s)}: {round_s[-1]:.2f} s, {n / round_s[-1]:.0f} "
+                  f"training rays/s ({len(tiles.states)} tiles x {n_inner} steps x "
+                  f"{rays_per_step[0]} rays)")
+            return out
+
+        return timed_round
+
+    tp.build_admm_round = timed_build
     served = None
     try:
         with tempfile.TemporaryDirectory() as root:
@@ -1321,7 +1357,7 @@ def city_phase(serve=None) -> dict:
             if serve is not None:
                 served = serve(root, tr, evals)
     finally:
-        tp.admm_round = admm_round
+        tp.build_admm_round = build_round
     return {"launches": got, "b3": b3, "serve": served}
 
 
@@ -2344,6 +2380,587 @@ def extras_phase(tile_ctx: dict, scene_dir: str) -> dict:
     return {"launches": got, "b4": b4, "normals": normals, "rates": rates}
 
 
+# ---------------------------------------------------------------------------
+# multi: the multi-device paths on ranks that share the card (slice 11)
+# ---------------------------------------------------------------------------
+
+# Two ranks, both on cuda:0, over gloo (NCCL refuses two ranks on one
+# device; gloo takes CUDA tensors and stages them through the host). The
+# phase proves that the sharded kernels and the collectives compute the
+# right thing at full width; it measures no scaling across cards.
+MULTI_WORLD = 2
+MULTI_LOG2_H = 24  # config/paper_2p24_2chip.yaml's table, TABLE_SHARDS 2
+MULTI_TIMED = 3  # timed table-sharded steps after one warm-up
+MULTI_CITY_STEPS = 5  # steps of each tile in the tiles mesh's round
+MULTI_TIMEOUT_S = 600
+MULTI_KIND = dict(SERVE_KIND, B5="fused_train_fwd", B6="fused_train_bwd")
+# Limits of the multi phase:
+# - (a) the table-sharded step against the unsharded step on the same
+#   batch and card: the train phase's fused-against-unfused limits
+#   (FVU_LOSS_RTOL, FVU_GRAD_RTOL); both decode unfused, so only the
+#   atomics' order and the two ranks' partial dL/du sums differ; each
+#   rank's table-gradient shard against its slice of the whole gradient
+#   at FVU_GRAD_RTOL["hash"] (relative L2);
+# - B3 / B4 on the shard against their plain versions: B3 1e-5 of the
+#   largest entry, B4 each part 1e-4 (the bf16 table gradient
+#   EXTRAS_BF16_TABLE_TOL a level), as the train and extras phases hold
+#   them; rows of other ranks' chunks exactly 0;
+# - (b) the ray-DP step's averaged gradients against the mean of the two
+#   replicas' gradients, each computed alone: FVU_GRAD_RTOL (B6's atomics
+#   add in another order in each run), the aux within FVU_LOSS_RTOL; the
+#   replicas' params after the step equal bit for bit;
+# - (c) the round's consensus over ranks against one process's
+#   consensus_update over the same four tiles: CITY_CONSENSUS_TOL;
+# - (d) the sharded frame against the one-rank frame: RENDER_TOL.
+
+
+def _multi_counters():
+    from scanerf_tpu_torch.ops.kernels import fused_render as fr
+    from scanerf_tpu_torch.ops.kernels import fused_train as ft
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+    from scanerf_tpu_torch.ops.kernels import sampler as sp
+
+    class B4All:  # every launch of B4's kernel, whatever its mode
+        @property
+        def launches(self):
+            return sum(hw.scatter_bwd.launches.values())
+
+        @launches.setter
+        def launches(self, n):
+            for m in hw.scatter_bwd.launches:
+                hw.scatter_bwd.launches[m] = n
+
+    return {"B1": sp.sample_fused, "B2": hw.pack, "B3": hw.lookup_fwd, "B4": B4All(),
+            "B5": ft.train_fwd, "B6": ft.train_bwd, "B7": fr.hash_decode_fused}
+
+
+class _Counted:
+    """Each kernel's launches while the block runs (the counts set to 0 on
+    entry, read on exit), added into ``total``."""
+
+    def __init__(self, counters, total):
+        self.counters, self.total, self.got = counters, total, {}
+
+    def __enter__(self):
+        for c in self.counters.values():
+            c.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.got = {k: c.launches for k, c in self.counters.items()}
+        for k, n in self.got.items():
+            self.total[k] = self.total.get(k, 0) + n
+
+
+def _multi_rank(rank, world, port, tmp, render_dirs, city_root):
+    """One rank of the multi phase: (a)-(d), its results pickled to
+    ``tmp``. Every failed check ends the rank (and so the phase)."""
+    import pickle
+
+    sys.path.insert(0, HERE)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from scanerf_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.init_ranks("gloo", rank, world, f"tcp://127.0.0.1:{port}")
+    counters, total = _multi_counters(), {}
+    out = {"rank": rank}
+    t = time.perf_counter()
+    out["a"] = _multi_table(rank, world, counters, total)
+    out["a_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["b"] = _multi_dp(rank, world, counters, total)
+    out["b_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["c"] = _multi_tiles(rank, world, counters, total, city_root)
+    out["c_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["d"] = _multi_render(rank, world, counters, total, render_dirs)
+    out["d_s"] = time.perf_counter() - t
+    out["launches"] = total
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(tmp, f"multi{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _collective_clock(mesh_lib):
+    """Wrap ``mesh_lib.all_reduce`` so that it adds its seconds (the stream
+    synchronised before and after, waits for the peer included) to the
+    returned list's first entry."""
+    spent = [0.0]
+    orig = mesh_lib.all_reduce
+
+    def clocked(t, axis, op="sum"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig(t, axis, op)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return r
+
+    mesh_lib.all_reduce = clocked
+    return spent, orig
+
+
+def _multi_table(rank, world, counters, total):
+    """(a) One tile's table sharded over the ranks at
+    config/paper_2p24_2chip.yaml's operating point (bench.py's sphere scene,
+    H = 2^24, 2^14 rays, 128 + 128 samples, M 512, the full recipe, the
+    windowed backend; the sharded lookup decodes unfused): the first step
+    against the unsharded step on the same batch, then one warm-up and
+    MULTI_TIMED timed steps, then B3 and B4 on this rank's localized
+    stream against their plain versions, and their times."""
+    from scanerf_tpu_torch.parallel import mesh as mesh_lib
+    from scanerf_tpu_torch.parallel import table_parallel
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+    from scanerf_tpu_torch.train import tile
+
+    # every loss weighs in the comparison, as in the train phase's
+    # fused_vs_unfused: alpha / gamma 0.02 / 1.0, mono normals that pass the
+    # smooth loss's test, ADMM variables with overlapping cameras
+    tc1 = tile.TrainConfig(**TRAIN_KW, **dict(ARMS["full_recipe"], alpha=0.02, gamma=1.0),
+                           fused_decoder=False)
+    tc2 = dataclasses.replace(tc1, table_shards=world)
+    axis = mesh_lib.make_mesh({"table": world}).axis("table")
+    state, data = train_setup(tc1, log2_h=MULTI_LOG2_H)
+    rng = np.random.default_rng(13)
+
+    def small(*shape):
+        return torch.tensor(rng.standard_normal(shape) * 0.01, dtype=torch.float32,
+                            device="cuda")
+
+    normals = np.float32([0.1, 1.0, 0.2]) + rng.standard_normal(
+        (TRAIN_CAMS, TRAIN_HW, TRAIN_HW, 3)).astype(np.float32) * 0.02
+    data = dataclasses.replace(data, mono_normals=torch.tensor(normals, device="cuda"))
+    state.admm = tile.AdmmState(
+        shared_se3=small(TRAIN_CAMS, 6), delta_se3=small(TRAIN_CAMS, 6),
+        overlap_flags=torch.arange(TRAIN_CAMS, device="cuda") % 4 != 1, rho=state.admm.rho)
+    rays_per_step = (2**tc1.batch_log2 // TRAIN_CAMS) // 4 * 4 * TRAIN_CAMS
+    ray_idx, locs = tile.sample_patches(torch.Generator().manual_seed(5), TRAIN_HW, TRAIN_HW,
+                                        2**tc1.batch_log2 // TRAIN_CAMS // 4, device="cuda")
+    pix = locs[None].expand(TRAIN_CAMS, *locs.shape)
+    # the unsharded step's gradients, this rank's slice of the table's kept
+    (_, a_ref), g_ref = tile.compute_grads(state, data, tc1, ray_idx=ray_idx, pixel_locs=pix)
+    ref_hash = table_parallel.shard_features(g_ref["hash"][0], axis).clone()
+    g_ref["hash"] = None
+    torch.cuda.empty_cache()
+    state = table_parallel.shard_state(state, axis)
+    torch.cuda.empty_cache()
+    with Capture((hw, "lookup_fwd", "B3"), (hw, "lookup_bwd", "B4")) as cap:
+        (_, a_sh), g_sh = tile.compute_grads(state, data, tc2, ray_idx=ray_idx, pixel_locs=pix,
+                                             table_axis=axis)
+    res = {"losses": {}, "grads": {}}
+    for k in ("total_loss", "rgb_loss", "depth_loss", "smooth_loss", "warp_loss", "admm_loss"):
+        a, b = float(a_sh[k]), float(a_ref[k])
+        tol = FVU_LOSS_RTOL.get(k, FVU_LOSS_RTOL["*"]) * abs(b)
+        res["losses"][k] = (a, b)
+        if not b > 1e-4:
+            fail(f"multi (a): the check's {k} is {b:.3g}, not above 1e-4: it carries no weight")
+        if not (np.isfinite(a) and abs(a - b) <= tol):
+            fail(f"multi (a) rank {rank}: the table-sharded step's {k} {a} differs from the "
+                 f"unsharded step's {b} (tol {tol:.3g})")
+    pairs = {"hash": [(ref_hash, g_sh["hash"][0])],
+             "decoder": list(zip(g_ref["decoder"], g_sh["decoder"])),
+             "cam": list(zip(g_ref["cam"], g_sh["cam"]))}
+    for name, ps in pairs.items():
+        worst = max(rel_l2(r, g) for r, g in ps if r.abs().max() > 0)
+        res["grads"][name] = worst
+        if not worst <= FVU_GRAD_RTOL[name]:
+            fail(f"multi (a) rank {rank}: the table-sharded step's {name} gradient differs "
+                 f"from the unsharded step's: relative L2 {worst:.3g}")
+    if not ref_hash.abs().max() > 0:
+        fail(f"multi (a) rank {rank}: the unsharded table gradient's slice is zero")
+    del g_ref, g_sh, ref_hash
+    torch.cuda.empty_cache()
+
+    # --- the counted main path: a warm-up and MULTI_TIMED timed steps
+    gen = tile.batch_generator(1)
+    tile.train_step(state, data, tc2, gen, device="cuda", table_axis=axis)
+    spent, orig = _collective_clock(mesh_lib)
+    try:
+        with _Counted(counters, total) as counted:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MULTI_TIMED):
+                _, aux = tile.train_step(state, data, tc2, gen, device="cuda", table_axis=axis)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        mesh_lib.all_reduce = orig
+    res.update(step_s=wall / MULTI_TIMED, collective_s=spent[0] / MULTI_TIMED,
+               rays_per_s=rays_per_step * MULTI_TIMED / wall, launches=counted.got,
+               loss=float(aux["total_loss"]))
+    if not np.isfinite(res["loss"]):
+        fail(f"multi (a) rank {rank}: non-finite loss in the timed steps")
+    for k in ("B1", "B2", "B3", "B4"):
+        if counted.got[k] <= 0:
+            fail(f"multi (a) rank {rank}: kernel {k} was not launched in the sharded steps")
+
+    # --- B3 and B4 on this rank's localized stream
+    a3 = cap.args["B3"][0]
+    pts, meta, table, rsl, NW = (x.detach() if isinstance(x, torch.Tensor) else x
+                                 for x in a3[:5])
+    g = cap.args["B4"][0][4].detach()
+    del cap
+    res.update(_sharded_lookup(rank, world, pts, meta, table, rsl, NW, g))
+    # B4's bf16 mode as HASH_BWD_BF16 launches it in the sharded step
+    with Capture((hw, "lookup_bwd", "B4")) as cap16:
+        tile.compute_grads(state, data, dataclasses.replace(tc2, hash_bwd_bf16=True),
+                           ray_idx=ray_idx, pixel_locs=pix, table_axis=axis)
+    a4, kw4 = cap16.args["B4"]
+    if kw4.get("mode") != "bf16":
+        fail(f"multi (a) rank {rank}: HASH_BWD_BF16 did not take B4's bf16 mode")
+    res["bf16"] = _sharded_b4(rank, world, *(x.detach() if isinstance(x, torch.Tensor) else x
+                                             for x in a4[:6]), mode="bf16")
+    return res
+
+
+def _one_rank_at_a_time(rank, world, fn):
+    """``fn()`` on each rank in turn, the others waiting at a barrier, so
+    that a kernel's time is not shared with the other rank's on the card;
+    -> this rank's result."""
+    from scanerf_tpu_torch.parallel import mesh as mesh_lib
+
+    out = None
+    for r in range(world):
+        mesh_lib.barrier()
+        if r == rank:
+            torch.cuda.synchronize()
+            out = fn()
+            torch.cuda.synchronize()
+    mesh_lib.barrier()
+    return out
+
+
+def _owned_range(meta):
+    """The middle N_SUB_CHUNKS of the chunks this rank's shard owns (span
+    > 0 in the localized meta)."""
+    live = torch.nonzero(meta[:, :, 2].sum(dim=1) > 0)[:, 0]
+    mid = live[len(live) // 2].item()
+    c0 = max(int(live[0]), mid - N_SUB_CHUNKS // 2)
+    return c0, min(int(live[-1]) + 1, c0 + N_SUB_CHUNKS)
+
+
+def _sharded_lookup(rank, world, pts, meta, table, res, NW, g):
+    """B3 and exact B4 on a shard's localized stream: against their plain
+    versions on the owned middle chunks, other ranks' chunks zero on the
+    whole stream, then timed on it with their bounds over the owned
+    chunks' bytes."""
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+
+    c0, c1 = _owned_range(meta)
+    sub_p, sub_m = pts[c0:c1].contiguous(), meta[c0:c1].contiguous()
+    wbase = int(meta[0, 0, 3])
+    f_k = hw.lookup_fwd(sub_p, sub_m, table, res, NW, shards=world)
+    f_p = hw.lookup_fwd_plain(sub_p, table, res, NW, wbase=sub_m[:, 0, 3])
+    e3, scale = float((f_k - f_p).abs().max()), float(f_p.abs().max())
+    print(f"multi (a) rank {rank} B3 on its shard (wbase {wbase}), chunks {c0}-{c1}: max err "
+          f"{e3:.3g}, largest entry {scale:.3g} (tol 1e-5 of it)")
+    if not (torch.isfinite(f_k).all() and scale > 0 and e3 <= 1e-5 * scale):
+        fail(f"multi (a) rank {rank}: B3 on the shard differs from its plain version")
+    owned = meta[:, :, 2].sum(dim=1) > 0
+    feats = hw.lookup_fwd(pts, meta, table, res, NW, shards=world)
+    dpts, _ = hw.lookup_bwd(pts, meta, table, res, g, NW, shards=world)
+    other = ~owned.repeat_interleave(hw.CHUNK)
+    if feats[other].count_nonzero() or dpts[~owned].count_nonzero():
+        fail(f"multi (a) rank {rank}: chunks of the other shard have nonzero features or dL/du")
+    del feats, dpts
+    b4 = _sharded_b4(rank, world, pts, meta, table, res, g, NW, mode="exact")
+    NC, L = pts.shape[0], table.shape[0]
+    n_owned = int(owned.sum())
+    real_owned = int(((pts[:, 3, :] < NW) & owned[:, None]).sum())
+    visited = int(torch.unique(meta[owned, 0, 0]).numel())
+    tab_bytes = visited * L * hw.WB * hw.W * 2 * 4
+    # B3 reads the owned chunks' pts rows 0-3, the meta and the shard's
+    # visited blocks, and writes every row's features (zeros on the other
+    # shard's chunks)
+    b3_bytes = n_owned * hw.CHUNK * 4 * 4 + meta.numel() * 4 + NC * hw.CHUNK * 2 * L * 4 \
+        + tab_bytes
+    b3_ms, b3_plain = _one_rank_at_a_time(rank, world, lambda: (
+        timed(lambda: hw.lookup_fwd(pts, meta, table, res, NW, shards=world), 10),
+        timed(lambda: hw.lookup_fwd_plain(pts, table, res, NW, wbase=meta[:, 0, 3]), 1)))
+    b3 = dict(launches=0, max_abs_err=e3, wbase=wbase, chunks=NC, owned_chunks=n_owned,
+              ms=b3_ms, plain_ms=b3_plain, bytes=b3_bytes, ops=real_owned * L * 8 * 6,
+              library_ms=None)
+    # B4 reads the owned chunks' pts rows 0-3 and cotangent rows, the meta
+    # and the visited blocks, writes dpts (all rows) and the shard's dense
+    # table gradient
+    b4_bytes = n_owned * hw.CHUNK * (4 + 2 * L) * 4 + meta.numel() * 4 + pts.numel() * 4 \
+        + tab_bytes + table.numel() * 4
+    b4_ms, b4_plain = _one_rank_at_a_time(rank, world, lambda: (
+        timed(lambda: hw.lookup_bwd(pts, meta, table, res, g, NW, shards=world), 5),
+        timed(lambda: hw.lookup_bwd_plain(pts, table, res, g, NW, wbase=meta[:, 0, 3]), 1)))
+    b4.update(launches=0, wbase=wbase, chunks=NC, owned_chunks=n_owned, ms=b4_ms,
+              plain_ms=b4_plain, bytes=b4_bytes, ops=real_owned * L * 8 * 14, library_ms=None)
+    print(f"multi (a) rank {rank}: B3 {b3['ms']:.4f} ms (plain {b3['plain_ms']:.1f}), B4 "
+          f"{b4['ms']:.4f} ms (plain {b4['plain_ms']:.1f}) on the shard's stream: {NC} chunks, "
+          f"{n_owned} owned, {real_owned} real rows owned, {visited} visited blocks")
+    return {"b3": b3, "b4": b4}
+
+
+def _sharded_b4(rank, world, pts, meta, table, res, g, NW, mode):
+    """B4 (``mode``) on a shard's owned middle chunks against its plain
+    version -> {"max_abs_err"}; the bf16 mode also times the whole stream."""
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+
+    c0, c1 = _owned_range(meta)
+    sub_p, sub_m = pts[c0:c1].contiguous(), meta[c0:c1].contiguous()
+    gs = g[c0 * hw.CHUNK:c1 * hw.CHUNK].contiguous()
+    dpts_k, dtab_k = hw.lookup_bwd(sub_p, sub_m, table, res, gs, NW, mode=mode, shards=world)
+    dpts_p, dtab_p = hw.lookup_bwd_plain(sub_p, table, res, gs, NW, mode, wbase=sub_m[:, 0, 3])
+    if dpts_k[:, 3:].count_nonzero() or dpts_p[:, 3:].count_nonzero():
+        fail(f"multi (a) rank {rank} B4 ({mode}) dpts rows 3-7 are not zero")
+    tol = EXTRAS_BF16_TABLE_TOL if mode == "bf16" else 1e-4
+    errs = check_parts(f"multi (a) rank {rank} B4 {mode} on its shard",
+                       [("dpts u", dpts_k[:, 0:3], dpts_p[:, 0:3])], False)
+    errs += check_parts(f"multi (a) rank {rank} B4 {mode} on its shard",
+                        [(f"d_tables level {lv}", dtab_k[lv], dtab_p[lv])
+                         for lv in range(LEVELS)], False, tol=tol)
+    out = {"max_abs_err": max(errs)}
+    if mode == "bf16":
+        out["ms"] = _one_rank_at_a_time(rank, world, lambda: timed(
+            lambda: hw.lookup_bwd(pts, meta, table, res, g, NW, mode="bf16", shards=world), 5))
+    return out
+
+
+def _multi_dp(rank, world, counters, total):
+    """(b) Ray data parallelism at bench.py's width (H = 2^21, the full
+    recipe, fused: B5 / B6): each rank's gradients alone on the batch its
+    generator draws, exchanged; then one step of ``build_dp_step``, whose
+    averaged gradients are held against their mean and whose replicas must
+    end equal."""
+    from scanerf_tpu_torch.parallel import mesh as mesh_lib
+    from scanerf_tpu_torch.parallel import ray_parallel as rp
+    from scanerf_tpu_torch.train import tile
+
+    tc = tile.TrainConfig(**TRAIN_KW, **ARMS["full_recipe"])
+    mesh = rp.make_ray_mesh()
+    rays = mesh.axis("rays")
+    state, data = train_setup(tc)
+    state, data = rp.shard_dp(mesh, state, data)
+    (_, a_own), g_own = tile.compute_grads(state, data, tc, tile.batch_generator(11, mesh))
+
+    def mean_of_ranks(t):  # (rank 0's + rank 1's) / 2, exchanged exactly
+        both = mesh_lib.gather_slices(t.detach()[None].contiguous(), rays, 0)
+        return (both[0] + both[1]) / 2
+
+    want = {k: [mean_of_ranks(x) for x in v] for k, v in g_own.items()}
+    want_loss = float(mean_of_ranks(a_own["total_loss"]))
+    del g_own
+    step = rp.build_dp_step(mesh, dataclasses.replace(tc, ray_shards=world))
+    with _Counted(counters, total) as counted, \
+            Capture((tile, "apply_gradients", "update")) as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = step(state, data, tile.batch_generator(11, mesh))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = cap.args["update"][0][1]
+    errs = {}
+    for name in ("hash", "decoder", "cam"):
+        errs[name] = max(rel_l2(w, g) for w, g in zip(want[name], got[name])
+                         if w.abs().max() > 0)
+        if not errs[name] <= FVU_GRAD_RTOL[name]:
+            fail(f"multi (b) rank {rank}: the DP step's averaged {name} gradient differs from "
+                 f"the mean of the replicas' (relative L2 {errs[name]:.3g})")
+    loss = float(aux["total_loss"])
+    if not abs(loss - want_loss) <= FVU_LOSS_RTOL["*"] * abs(want_loss):
+        fail(f"multi (b) rank {rank}: the DP step's loss {loss} is not the replicas' mean "
+             f"{want_loss}")
+    from scanerf_tpu_torch.models.decoder import pack_params
+
+    p = state.params
+    for name, t in (("tables", p.field.features), ("decoder", pack_params(p.field.decoder)),
+                    ("se3_refine", p.se3_refine)):
+        d = mesh_lib.all_reduce(t.detach() * (1.0 if rank == 0 else -1.0), rays)
+        if d.count_nonzero():
+            fail(f"multi (b): the replicas' {name} differ after the step")
+    print(f"multi (b) rank {rank}: DP step {wall * 1e3:.1f} ms for {world} x 2^14 rays; "
+          f"averaged gradients against the mean (relative L2) {errs}; replicas equal")
+    for k in ("B1", "B2", "B5", "B6"):
+        if counted.got[k] <= 0:
+            fail(f"multi (b) rank {rank}: kernel {k} was not launched in the DP step")
+    return {"grads": errs, "loss": loss, "step_s": wall, "launches": counted.got}
+
+
+def _multi_tiles(rank, world, counters, total, city_root):
+    """(c) The tiles mesh: the city phase's 2 x 2 city by ``Trainer`` on two
+    ranks of two tiles each, one round of MULTI_CITY_STEPS steps; its
+    consensus over the ranks against one process's ``consensus_update``
+    over the same four tiles' poses."""
+    from scanerf_tpu_torch.config import default_config
+    from scanerf_tpu_torch.parallel import consensus
+    from scanerf_tpu_torch.parallel import mesh as mesh_lib
+    from scanerf_tpu_torch.train.trainer import Trainer
+
+    cfg = default_config().deep_update({
+        "DATADIR": city_root, "TILES": list(range(CITY_NX * CITY_NZ)), "RHO": 100.0,
+        "SYN_ITERS": MULTI_CITY_STEPS, "EVAL_STEP": 10**6, "UPDATE_MASK_STEP": 10**6,
+        "CKPT_STEP": 0, "HASHGRID": {"LOG2_HASHMAP_SIZE": 21},
+        "TRAINING": {"TOTAL_STEP": CITY_STEPS, "BS_LOG2DIM": 14, "NUM_SAMPLE": 128,
+                     "NUM_BG_SAMPLE": 128, "NUM_MARCH": 512, "GRID_LOG2DIM": [6, 7],
+                     "PRUNING_TH": [0.1], "ADJUST_STEP": 10**6, "CAMOPT": {"NOISE": 0.01}}})
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device="cuda", backend="gloo")
+    build_s = time.perf_counter() - t0
+    tiles = tr.mesh.axis("tiles")
+    if tr.local_ids != [2 * rank, 2 * rank + 1]:
+        fail(f"multi (c) rank {rank} holds tiles {tr.local_ids}")
+    before = [(s.admm.shared_se3.clone(), s.admm.delta_se3.clone()) for s in tr.states]
+    with _Counted(counters, total) as counted:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = tr.train_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def whole(ts):  # the four tiles' [4, ...] from each rank's two
+        return mesh_lib.gather_slices(torch.stack(ts).float().contiguous(), tiles, 0)
+
+    x = whole([s.params.se3_refine.detach() for s in tr.states])
+    z, delta, ov, caux = consensus.consensus_update(
+        x, whole(list(tr.confidence)), whole(list(tr.cam_map)).to(torch.int32),
+        whole([b[0] for b in before]), whole([b[1] for b in before]), tr.states[0].admm.rho,
+        tr.num_global_cams)
+    mine = slice(2 * rank, 2 * rank + 2)
+    errs = {}
+    for name, ref, got in (("z", z[mine], [s.admm.shared_se3 for s in tr.states]),
+                           ("delta", delta[mine], [s.admm.delta_se3 for s in tr.states])):
+        errs[name] = float((torch.stack(got) - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+    for k in ("primal_residual", "dual_residual"):
+        errs[k] = abs(float(getattr(aux, k)) - float(getattr(caux, k)))
+    same_ov = torch.equal(torch.stack([s.admm.overlap_flags for s in tr.states]), ov[mine])
+    n_ovl = int(aux.num_overlap)
+    rays_per_step = (2**14 // tr.datas[0].images.shape[0]) // 4 * 4 * tr.datas[0].images.shape[0]
+    print(f"multi (c) rank {rank}: Trainer built in {build_s:.1f} s; round of 2 tiles x "
+          f"{MULTI_CITY_STEPS} steps {wall:.2f} s ({2 * MULTI_CITY_STEPS * rays_per_step / wall:.0f}"
+          f" training rays/s on this rank); consensus over the ranks against one process: "
+          f"{errs} (tol {CITY_CONSENSUS_TOL}); overlap flags equal {same_ov}, {n_ovl} slots")
+    if not (all(e <= CITY_CONSENSUS_TOL for e in errs.values()) and same_ov and n_ovl == int(
+            caux.num_overlap) > 0):
+        fail(f"multi (c) rank {rank}: the consensus over the ranks differs from one process's")
+    for k in ("B1", "B2", "B5", "B6"):
+        if counted.got[k] <= 0:
+            fail(f"multi (c) rank {rank}: kernel {k} was not launched in the round")
+    return {"errs": errs, "round_s": wall, "build_s": build_s, "launches": counted.got,
+            "n_overlap": n_ovl, "primal": float(aux.primal_residual)}
+
+
+def _multi_render(rank, world, counters, total, render_dirs):
+    """(d) The render phase's overhead view at 256x128, ``sharded=True``
+    over the ranks, fused and unfused, against the one-rank frame."""
+    from scanerf_tpu_torch.parallel import mesh as mesh_lib
+    from scanerf_tpu_torch.render import renderer
+
+    scene = renderer.load_scene(render_dirs, device="cuda")
+    K, views = cameras()
+    mesh = mesh_lib.make_mesh({"rays": world})
+    out = {}
+    for fuse in (True, False):
+        kw = dict(chunk=CHUNK, device="cuda", fuse_decoder=fuse, **RENDER_KW)
+        with _Counted(counters, total) as counted:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = renderer.render_image(scene, K, views["overhead"], IMG_H, IMG_W, sharded=True,
+                                        mesh=mesh, **kw)
+            wall = time.perf_counter() - t0
+        one = renderer.render_image(scene, K, views["overhead"], IMG_H, IMG_W, **kw)
+        label = "fused" if fuse else "unfused"
+        errs = {k: float(np.abs(img[k] - one[k]).max()) for k in ("rgb", "depth")}
+        print(f"multi (d) rank {rank} sharded frame ({label}) {wall * 1e3:.1f} ms: max |sharded "
+              f"- one rank| {errs} (tol {dict(RENDER_TOL)})")
+        for k, tol in RENDER_TOL:
+            if k in errs and not errs[k] <= tol:
+                fail(f"multi (d) rank {rank}: the sharded frame ({label}) differs in {k}")
+        need = ("B1", "B2", "B7") if fuse else ("B1", "B2", "B3")
+        for k in need:
+            if counted.got[k] <= 0:
+                fail(f"multi (d) rank {rank}: kernel {k} was not launched ({label})")
+        out[label] = {"errs": errs, "ms": wall * 1e3, "launches": counted.got}
+    return out
+
+
+def multi_phase() -> dict:
+    """The multi-device paths on MULTI_WORLD ranks that share cuda:0 over
+    gloo (``torch.multiprocessing``, spawn), after the kernels are built
+    in this process: (a) a table-sharded 2^24 tile, (b) ray data
+    parallelism, (c) the tiles mesh, (d) the sharded render. Returns each
+    kernel's launches over the ranks' counted runs and B3's / B4's numbers
+    on a shard (rank 1's: its ``wbase`` is not 0)."""
+    import pickle
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from scanerf_tpu_torch.data import io as dio
+    from scanerf_tpu_torch.data.city import write_city_scene_dir
+
+    t_phase = time.perf_counter()
+    print(f"multi: {MULTI_WORLD} ranks, all on cuda:0, collective backend gloo")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        render_root = os.path.join(tmp, "render")
+        os.makedirs(render_root)
+        render_dirs = write_scene(render_root)
+        city_root = os.path.join(tmp, "city")
+        write_city_scene_dir(city_root, nx_tiles=CITY_NX, nz_tiles=CITY_NZ,
+                             n_cameras=CITY_CAMS, H=CITY_HW, W=CITY_HW)
+        path = os.path.join(city_root, "tiles", "tile_info.txt")
+        infos = list(dio.read_tile_info(path).values())
+        for info in infos:  # as the city phase's
+            info.resolution = (32, 2048)
+            info.corner = info.corner + np.array([0.0, 0.2, 0.0], np.float32)
+        dio.write_tile_info(path, infos)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        ctx = mp.start_processes(_multi_rank, args=(MULTI_WORLD, port, tmp, render_dirs,
+                                                    city_root),
+                                 nprocs=MULTI_WORLD, join=False, start_method="spawn")
+        deadline = time.perf_counter() + MULTI_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    fail(f"multi: the ranks did not end within {MULTI_TIMEOUT_S} s")
+        except Exception as e:  # a rank failed: spawn ends the others
+            fail(f"multi: a rank failed: {e}")
+        outs = []
+        for r in range(MULTI_WORLD):
+            with open(os.path.join(tmp, f"multi{r}.pkl"), "rb") as f:
+                outs.append(pickle.load(f))
+    launches = {}
+    for o in outs:
+        for k, n in o["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    for o in outs:
+        a = o["a"]
+        print(f"multi (a) rank {o['rank']}: table-sharded 2^{MULTI_LOG2_H} step "
+              f"{a['step_s'] * 1e3:.1f} ms, of it {a['collective_s'] * 1e3:.1f} ms in "
+              f"collectives, {a['rays_per_s']:.0f} training rays/s (the tile's 2^14 rays a "
+              f"step over both ranks); first step against the unsharded step: losses "
+              + json.dumps({k: [round(x, 7) for x in v] for k, v in a["losses"].items()})
+              + f", gradients (relative L2) {a['grads']}; peak device memory "
+              f"{o['peak_gib']:.2f} GiB; parts (a)-(d) "
+              + ", ".join(f"{o[p + '_s']:.1f}" for p in "abcd") + " s")
+    print(f"multi launches (both ranks, counted runs of (a)-(d)): {launches}")
+    a1 = outs[-1]["a"]
+    b3 = dict(a1["b3"], launches=sum(o["a"]["launches"]["B3"] for o in outs),
+              max_abs_err=max(o["a"]["b3"]["max_abs_err"] for o in outs))
+    b4 = dict(a1["b4"], launches=sum(o["a"]["launches"]["B4"] for o in outs),
+              max_abs_err=max(max(o["a"]["b4"]["max_abs_err"], o["a"]["bf16"]["max_abs_err"])
+                              for o in outs),
+              bf16_ms=a1["bf16"]["ms"])
+    print(f"multi: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "b3": b3, "b4": b4}
+
+
 def print_ptxas(lib: str, log: str) -> None:
     """One line per kernel of a library's ``-Xptxas -v`` log: registers,
     spills and shared memory."""
@@ -2722,6 +3339,9 @@ def main() -> None:
         print(f"total {time.perf_counter() - t_start:.1f} s")
         extras = extras_phase(tiled["ctx"], city_copy)
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    del tiled
+    multi = multi_phase()
+    print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def bound(r):
         t_bytes = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
@@ -2754,6 +3374,14 @@ def main() -> None:
             by_name[SERVE_KIND[k]]["extras_launches"] = n
     for mode, entry in extras["b4"].items():
         by_name["hash_lookup_bwd"][mode] = bound(dict(entry))
+    # each kernel's launches over the multi phase's ranks, and B3's and
+    # B4's numbers on a table shard
+    for r in rows:
+        r["multi_launches"] = 0
+    for k, n in multi["launches"].items():
+        by_name[MULTI_KIND[k]]["multi_launches"] = n
+    by_name["hash_lookup_fwd"]["sharded"] = bound(dict(multi["b3"]))
+    by_name["hash_lookup_bwd"]["sharded"] = bound(dict(multi["b4"]))
     # B1's row: the render chunk's numbers, all its launches, and each
     # training shape's launches and times beside them
     b1 = rows[0]

@@ -248,7 +248,9 @@ def parallel_tiles(jax_tiles, device="cuda"):
     """A JAX ``ParallelTiles`` (every tile's state stacked on a leading
     axis, ``cam_map`` and ``confidence`` [T, M]) as the port holds tiles
     on one card: (a list of ``TrainState``s, each as ``train_state`` reads
-    it; cam_map int32 [T, M]; confidence f32 [T, M]), on ``device``."""
+    it; cam_map int32 [T, M]; confidence f32 [T, M]), on ``device``. A
+    rank of a mesh takes its tiles (``tile_parallel.local_tiles``) and
+    their table shards (``table_shard``) from them."""
     dev = _device.resolve(device)
     stacked = jax_tiles.state
     cam_enable, sparse = _cam_enabled(stacked), _sparse_adam(stacked)
@@ -258,6 +260,16 @@ def parallel_tiles(jax_tiles, device="cuda"):
               for t in range(cam_map.shape[0])]
     return (states, torch.tensor(cam_map, dtype=torch.int32, device=dev),
             torch.tensor(np.asarray(jax_tiles.confidence, np.float32), device=dev))
+
+
+def table_shard(state: tile_lib.TrainState, table_axis) -> tile_lib.TrainState:
+    """A port state with whole tables (``train_state`` of a JAX state, a
+    loaded checkpoint, one slice of ``parallel_tiles``) cut in place to a
+    rank's shard on ``table_axis`` (``mesh.Axis``): the table and its Adam
+    moments, as ``create_train_state(table_axis=)`` holds them."""
+    from scanerf_tpu_torch.parallel import table_parallel
+
+    return table_parallel.shard_state(state, table_axis)
 
 
 def lpips_params(params: dict, device="cuda") -> dict:

@@ -75,6 +75,15 @@
 // of the adds changes from run to run, so the table gradient differs
 // between runs in the last bits of f32.
 //
+// Table shards (B3 and B4, every mode). A table sharded over ranks holds a
+// contiguous range of window blocks; the stream keeps its global window ids
+// and sentinel, and each chunk's meta carries in its 4th field (wbase) the
+// global id of the shard's window 0 (0 for a whole table). Both kernels
+// subtract wbase from a window id before they address the table or the table
+// gradient, one integer read a block. Chunks of another shard come with span 0
+// (parallel/table_parallel.py::localize_meta), so they write zero features and
+// zero dL/du, as chunks of sentinel rows do.
+
 // B4 has two more modes, template flags of the same kernel (BwdMode). BF16
 // rounds each (row, corner, feature) contribution w * g to bf16 before the
 // warp sums it (the JAX HASH_BWD_BF16 option; the sums and dL/du stay f32).
@@ -203,6 +212,8 @@ lookup_fwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
   float* ob = out + row0 * 2 * L;
   int wlo, whi;
   subtile_windows(meta + (row0 / 128) * 4, FWD_THREADS / 128, wlo, whi);
+  // the global id of the table's window 0: 0, or a shard's first window
+  const int wbase = meta[c * SUBT * 4 + 3];
   if (whi < wlo) {
     for (int p = tid; p < FWD_THREADS * L / 2; p += FWD_THREADS)
       reinterpret_cast<float4*>(ob)[p] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -217,7 +228,7 @@ lookup_fwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
       const int wb = wlo + p * FWD_WCAP;
       const int n16 = min(FWD_WCAP, whi - wb + 1) * WIN * 2 * (int)sizeof(TT) / 16;
       const int4* src = reinterpret_cast<const int4*>(table + (size_t)l * row_stride +
-                                                      (size_t)wb * WIN * 2);
+                                                      (size_t)(wb - wbase) * WIN * 2);
       int4* dst = reinterpret_cast<int4*>(stage + b * BUF);
       for (int i = tid; i < n16; i += FWD_THREADS) cp_async16(dst + i, src + i);
     }
@@ -325,6 +336,7 @@ lookup_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
     for (int t = tid; t < 3 * CHUNK; t += THREADS) drow[t] = 0.0f;
     return;
   }
+  const int wbase = meta[c * SUBT * 4 + 3];  // as B3's: the table's window 0
   for (int i = tid; i < 3 * L; i += THREADS) res[i] = res_g[i];
   if (tid == 0) block_adds = 0;
   __syncthreads();
@@ -359,7 +371,7 @@ lookup_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
           const bool cx = (cn >> 2) & 1, cy = (cn >> 1) & 1, cz = cn & 1;
           const float fx = cx ? kc.ox : 1.0f - kc.ox, fy = cy ? kc.oy : 1.0f - kc.oy,
                       fz = cz ? kc.oz : 1.0f - kc.oz;
-          const float2 tv = load_pair(tl, (size_t)w[k] * WIN + corner_slot(kc, cn));
+          const float2 tv = load_pair(tl, (size_t)(w[k] - wbase) * WIN + corner_slot(kc, cn));
           const float dot = g0 * tv.x + g1 * tv.y;
           s0 += (cx ? 1.0f : -1.0f) * fy * fz * dot;
           s1 += (cy ? 1.0f : -1.0f) * fx * fz * dot;
@@ -426,7 +438,7 @@ lookup_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
           }
           __syncwarp();
           if (mine) {
-            const float2 tv = load_pair(tl, (size_t)w[k] * WIN + h);
+            const float2 tv = load_pair(tl, (size_t)(w[k] - wbase) * WIN + h);
             const float dot = g0 * tv.x + g1 * tv.y;
             s0 += (cx ? 1.0f : -1.0f) * fy * fz * dot;
             s1 += (cy ? 1.0f : -1.0f) * fx * fz * dot;
@@ -449,7 +461,7 @@ lookup_bwd_kernel(const float* __restrict__ pts, const int* __restrict__ meta,
           v.y += o.y;
         }
         if (v.x != 0.0f || v.y != 0.0f) {
-          atomicAdd(dl + (size_t)wb * WIN + e, v);
+          atomicAdd(dl + (size_t)(wb - wbase) * WIN + e, v);
           ++adds;
         }
       }

@@ -29,7 +29,12 @@ The training knobs apply where the JAX package applies them:
 ``hash_encode_stoch``) on the xla backend only, ``bwd_onehot_bf16`` (the
 table gradient's contributions rounded to bf16 in B4's kernel) on the
 windowed backend only; each backend ignores the other's. Sharded tables
-raise ``NotImplementedError`` naming their ROADMAP item.
+(``table_shards`` > 1 with the ``table_axis`` they are sharded over, the
+windowed backend only, as in the JAX package) hold one shard of the
+table on each rank: the replicated stream is localized to the rank's
+window blocks, B3 / B4 run on the shard, the features are summed over
+the axis, and the unfused decoder follows, even where ``fused_decoder``
+asks for B5 / B6 (``parallel/table_parallel.py``).
 
 ``field_inference_sigma`` is the density query of occupancy pruning, in
 either layout; ``compute_normal`` and ``render_normals`` take its gradient
@@ -50,6 +55,7 @@ from scanerf_tpu_torch.models import decoder as decoder_lib
 from scanerf_tpu_torch.ops import hash_encode, integrate, sampling
 from scanerf_tpu_torch.ops.kernels import fused_train as ft
 from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+from scanerf_tpu_torch.parallel import table_parallel
 
 N_LEVELS = 16
 N_FEATURES = 2
@@ -210,10 +216,16 @@ def _compose_fg_bg(fg: dict, bg: dict, rays_o, rays_d, train: bool) -> dict:
     return out
 
 
-def _check_options(table_shards):
-    if table_shards > 1:
-        raise NotImplementedError("sharded tables are not ported yet: ROADMAP.md "
-                                  "queue A, item 'Multi-device and opt-in knobs'")
+def _check_options(table_shards, table_axis, backend):
+    """Sharded tables need the windowed backend and the axis they are
+    sharded over, of their shard count."""
+    if table_shards == 1:
+        return
+    if backend != "windowed":
+        raise ValueError("table parallelism requires the windowed backend")
+    if table_axis is None or table_axis.size != table_shards:
+        raise ValueError(f"{table_shards} table shards need a table axis of that size, "
+                         f"got {table_axis}")
 
 
 def render_batch_rays(params: FieldParams, state: FieldState, rays_o, rays_d, z_vals,
@@ -293,7 +305,7 @@ def render_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
                 num_march: int = 512, stochastic_grad: bool = False, bg_z=None,
                 backend: str = "windowed", table_shards: int = 1,
                 bwd_onehot_bf16: bool = False, fused_decoder: bool = True,
-                compact_dead: bool = True, stage_hook=None) -> dict:
+                compact_dead: bool = True, stage_hook=None, table_axis=None) -> dict:
     """fg + bg render of rays [N, 3] (unnormalized directions). The
     windowed backend decodes one sorted stream, with the fused decoder or,
     for ``fused_decoder=False``, the lookup then the decoder; the xla
@@ -305,14 +317,18 @@ def render_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
     timing. Differentiable in the field's params and in rays_o / rays_d
     (through the sample positions and view dirs). ``stochastic_grad``
     applies to the xla backend and ``bwd_onehot_bf16`` to the windowed
-    one, each ignored by the other, as in the JAX package."""
-    _check_options(table_shards)
-    backend = effective_backend(backend, hash_encode.table_rows(params.features))
+    one, each ignored by the other, as in the JAX package. With
+    ``table_shards`` > 1, ``params.features`` is this rank's shard of a
+    table sharded over ``table_axis`` (``mesh.Axis``)."""
+    backend = effective_backend(backend,
+                                hash_encode.table_rows(params.features) * table_shards)
+    _check_options(table_shards, table_axis, backend)
     if backend == "windowed":
         return _render_rays_windowed(params, state, rays_o, rays_d, num_fg_sample,
                                      num_bg_sample, step, occlusion_mask, train,
                                      invalid_underground, num_march, bg_z, fused_decoder,
-                                     compact_dead, stage_hook, bwd_onehot_bf16)
+                                     compact_dead, stage_hook, bwd_onehot_bf16,
+                                     table_axis if table_shards > 1 else None)
     fg = render_fore_rays(params, state, rays_o, rays_d, num_fg_sample, step,
                           occlusion_mask=occlusion_mask, train=train, num_march=num_march,
                           stochastic_grad=stochastic_grad)
@@ -326,9 +342,11 @@ def render_rays(params: FieldParams, state: FieldState, rays_o, rays_d,
 def _render_rays_windowed(params, state, rays_o, rays_d, num_fg_sample, num_bg_sample,
                           step, occlusion_mask, train, invalid_underground, num_march,
                           bg_z, fused_decoder, compact_dead, stage_hook,
-                          bwd_onehot_bf16=False) -> dict:
-    """``render_rays`` through the windowed sorted stream."""
-    H = hash_encode.table_rows(params.features)
+                          bwd_onehot_bf16=False, table_axis=None) -> dict:
+    """``render_rays`` through the windowed sorted stream; with
+    ``table_axis``, over the table sharded on it."""
+    shards = 1 if table_axis is None else table_axis.size
+    H = hash_encode.table_rows(params.features) * shards
     B = rays_o.shape[0]
     Sf, Sb = num_fg_sample, num_bg_sample
     zf, df, vf = sampling.sample_points_grid(
@@ -361,7 +379,13 @@ def _render_rays_windowed(params, state, rays_o, rays_d, num_fg_sample, num_bg_s
                           (~vb)[:, None].expand(B, Sb).reshape(-1)])
     stream = hw.sort_pack(x, dirs, H, dead)
     _mark(stage_hook, "sort_pack")
-    if fused_decoder:
+    if table_axis is not None:
+        # the shard's lookup, then the unfused decoder (JAX field.py:445)
+        feats = table_parallel.lookup_sharded(stream, params.features, state.resolutions,
+                                              table_axis, bwd_onehot_bf16)
+        dirs_s = stream.pts[:, 4:7, :].permute(0, 2, 1).reshape(feats.shape[0], 3)
+        cols = decode_columns(params.decoder, feats, dirs_s, weight_feature(step))
+    elif fused_decoder:
         slab = ft.pack_train_slab(params.decoder, weight_feature(step))
         cols = ft.hash_decode_train(stream.pts, stream.meta, params.features,
                                     state.resolutions, slab, bwd_bf16=bwd_onehot_bf16)

@@ -145,7 +145,7 @@ class SortedStream:
     JAX ``SortedStream`` with ``inv_full=None``)."""
 
     pts: torch.Tensor  # [NC, 8, CHUNK] f32: rows u0 u1 u2 widf d0 d1 d2 0
-    meta: torch.Tensor  # [NC, SUBT, 4] i32: (boc, wmin, span, 0) per subtile
+    meta: torch.Tensor  # [NC, SUBT, 4] i32: (boc, wmin, span, wbase 0) per subtile
     pidp: torch.Tensor  # [Np] i32 original row index (N for pad rows)
     visited: torch.Tensor  # [NB] bool: block has rows
 
@@ -359,29 +359,45 @@ def unsort_rows(vals: torch.Tensor, pidp: torch.Tensor, N: int) -> torch.Tensor:
 # B3 / B4: the windowed lookup over the sorted stream and its backward
 # ---------------------------------------------------------------------------
 
-def _stream_rows(pts, NW: int):
-    """Per stream row: u [Np, 3], window id [Np] (0 on sentinel rows) and
-    whether the row is real (window below ``NW``)."""
+def _stream_rows(pts, NW: int, nw_table: int | None = None, wbase=None):
+    """Per stream row: u [Np, 3], its window's index in the table of
+    ``nw_table`` windows (None: ``NW``) whose window 0 has the global id
+    ``wbase`` (per chunk [NC], or None: 0), 0 where the row has none
+    there, and whether it has one (a real row, window below ``NW``, of the
+    table's range)."""
+    nw_table = NW if nw_table is None else nw_table
     u = pts[:, 0:3, :].permute(0, 2, 1).reshape(-1, 3)
     wid = pts[:, 3, :].reshape(-1).to(torch.int64)
-    real = wid < NW
+    if wbase is not None:
+        wid = wid - wbase.to(torch.int64).repeat_interleave(CHUNK)
+    real = (wid >= 0) & (wid < min(NW, nw_table))
     return u, torch.where(real, wid, torch.zeros_like(wid)), real
 
 
-def lookup_fwd_plain(pts, features, resolutions, NW: int) -> torch.Tensor:
+def table_windows(features) -> int:
+    """Windows of a flat [L, nW*512*2] or [L, nW*512, 2] table (shard)."""
+    return as_3d(features).shape[1] // W
+
+
+def lookup_fwd_plain(pts, features, resolutions, NW: int, wbase=None) -> torch.Tensor:
     """Plain PyTorch version of B3: [Np, L*2] f32 hash features of every
     row of the stream ``pts`` [NC, 8, CHUNK] (zero on rows in the sentinel
-    window ``NW``, so on every row of an all-sentinel chunk)."""
-    u, wid, real = _stream_rows(pts, NW)
+    window ``NW``, so on every row of an all-sentinel chunk). On a table
+    shard, ``wbase`` [NC] is each chunk's ``meta[:, 0, 3]``, the global id
+    of the shard's window 0, and rows whose window lies outside the shard
+    get zeros too (B3 gives chunks of other shards span 0)."""
+    u, wid, real = _stream_rows(pts, NW, table_windows(features), wbase)
     feats = encode_rows(u, wid, features, resolutions)
     return torch.where(real[:, None], feats, torch.zeros_like(feats))
 
 
-def lookup_bwd_plain(pts, features, resolutions, g, NW: int, mode: str = "exact"):
+def lookup_bwd_plain(pts, features, resolutions, g, NW: int, mode: str = "exact",
+                     wbase=None):
     """Plain PyTorch version of B4: the cotangents of ``lookup_fwd_plain``
     under ``g`` [Np, L*2], written out (not by autograd) -> (dpts [NC, 8,
     CHUNK] with dL/du in rows 0-2 and zeros in rows 3-7, d_features like
-    ``features``, f32). The table gradient is an ``index_add_`` of each
+    ``features``, f32); ``wbase`` as ``lookup_fwd_plain``'s, rows outside
+    the shard contributing nothing. The table gradient is an ``index_add_`` of each
     corner's trilinear weight times the row's cotangent pair (``mode``
     "bf16": each such product rounded to bf16 first; "du": no table
     gradient, d_features None); dL/du sums, per level and corner, the
@@ -391,7 +407,7 @@ def lookup_bwd_plain(pts, features, resolutions, g, NW: int, mode: str = "exact"
         raise ValueError(f"unknown mode {mode!r}")
     f3 = as_3d(features)
     L = f3.shape[0]
-    u, wid, real = _stream_rows(pts, NW)
+    u, wid, real = _stream_rows(pts, NW, f3.shape[1] // W, wbase)
     g3 = torch.where(real[:, None], g, torch.zeros_like(g)).reshape(-1, L, 2)
     sign = 2.0 * torch.as_tensor(CORNERS, device=u.device).to(u.dtype) - 1.0  # [8, 3]
     d3 = None if mode == "du" else torch.zeros(f3.shape, dtype=torch.float32, device=u.device)
@@ -428,7 +444,10 @@ def _lookup_fn(name, argtypes):
     return f
 
 
-def _check_lookup(pts, meta, features, resolutions, NW: int):
+def _check_lookup(pts, meta, features, resolutions, NW: int, shards: int = 1):
+    """Raise unless the stream and the table (a shard of ``NW // shards``
+    windows, whose first window's global id each chunk's meta carries)
+    are what B3 / B4 read."""
     dev = pts.device
     NC, L = pts.shape[0], resolutions.shape[0]
     check_tensor("pts", pts, torch.float32, (NC, 8, CHUNK), dev)
@@ -437,21 +456,24 @@ def _check_lookup(pts, meta, features, resolutions, NW: int):
     if features.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"features must be f32 or bf16, got {features.dtype}")
     check_tensor("features", features, features.dtype, (L, features.shape[1]), dev)
-    if features.shape[1] != NW * W * 2 or not 1 <= L <= 16:
-        raise ValueError(f"features {tuple(features.shape)}: want [L <= 16, {NW * W * 2}]")
+    if NW % shards or features.shape[1] != NW // shards * W * 2 or not 1 <= L <= 16:
+        raise ValueError(f"features {tuple(features.shape)}: want [L <= 16, "
+                         f"{NW // shards * W * 2}] ({shards} shards of {NW} windows)")
 
 
-def lookup_fwd(pts, meta, features, resolutions, NW: int) -> torch.Tensor:
+def lookup_fwd(pts, meta, features, resolutions, NW: int, shards: int = 1) -> torch.Tensor:
     """B3 wrapper -> feats [Np, L*2] f32 in stream order. CPU tensors take
     ``lookup_fwd_plain``; CUDA tensors launch the kernel. ``features`` is
-    the flat [L, NW*512*2] f32 or bf16 table (stack); ``NW`` its window
-    count, the sentinel window id. ``meta`` must be the stream's own (the
-    kernel stages only the windows it names)."""
+    the flat [L, NW*512*2] f32 or bf16 table (stack), or with ``shards`` >
+    1 one shard of it, [L, NW/shards*512*2], whose window 0 each chunk's
+    ``meta[:, 0, 3]`` names (``table_parallel.localize_meta``); ``NW`` is
+    the whole table's window count, the sentinel window id. ``meta`` must
+    be the stream's own (the kernel stages only the windows it names)."""
     if pts.device.type == "cpu":
-        return lookup_fwd_plain(pts, features, resolutions, NW)
+        return lookup_fwd_plain(pts, features, resolutions, NW, _wbase(meta, shards))
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
-    _check_lookup(pts, meta, features, resolutions, NW)
+    _check_lookup(pts, meta, features, resolutions, NW, shards)
     if features.data_ptr() % 16:
         raise ValueError("features must start on a 16-byte boundary: B3 copies its "
                          "windows in 16-byte pieces")
@@ -469,8 +491,13 @@ def lookup_fwd(pts, meta, features, resolutions, NW: int) -> torch.Tensor:
 lookup_fwd.launches = 0
 
 
+def _wbase(meta, shards: int):
+    """Each chunk's ``wbase`` for the plain versions (None: a whole table)."""
+    return meta[:, 0, 3] if shards > 1 else None
+
+
 def scatter_bwd(pts, meta, features, resolutions, g, NW: int, dpts, own_rows: int,
-                adds=None, g_layout: str = "rows", mode: str = "exact"):
+                adds=None, g_layout: str = "rows", mode: str = "exact", shards: int = 1):
     """Launch B4's kernel, the table scatter and dL/du, on CUDA tensors ->
     d_features [L, NW*512*2] f32 (None in ``mode`` "du"); writes dL/du
     into dpts rows 0-2 and, with ``own_rows`` 8, zeros into rows 3-7 (with
@@ -481,10 +508,11 @@ def scatter_bwd(pts, meta, features, resolutions, g, NW: int, dpts, own_rows: in
     int64 [1] tensor, the kernel adds to it the f32 elements it added to
     the table gradient with global atomics. Counts every launch of B4's
     kernel, whichever wrapper calls it (``lookup_bwd``, B6's
-    ``train_bwd``), in ``launches[mode]``."""
+    ``train_bwd``), in ``launches[mode]``. ``shards``: as ``lookup_fwd``'s
+    (the gradient is the shard's)."""
     if mode not in BWD_MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    _check_lookup(pts, meta, features, resolutions, NW)
+    _check_lookup(pts, meta, features, resolutions, NW, shards)
     NC, L = pts.shape[0], resolutions.shape[0]
     if g_layout == "rows":
         check_tensor("g", g, torch.float32, (NC * CHUNK, 2 * L), pts.device)
@@ -513,31 +541,31 @@ scatter_bwd.launches = dict.fromkeys(BWD_MODES, 0)
 
 
 def lookup_bwd(pts, meta, features, resolutions, g, NW: int, adds=None,
-               mode: str = "exact"):
-    """B4 wrapper -> (dpts [NC, 8, CHUNK], d_features [L, NW*512*2] f32, or
-    None in ``mode`` "du"). CPU tensors take ``lookup_bwd_plain``; CUDA
-    tensors launch the kernel (``adds``, ``mode`` and the launch counts: see
-    ``scatter_bwd``).
+               mode: str = "exact", shards: int = 1):
+    """B4 wrapper -> (dpts [NC, 8, CHUNK], d_features like ``features``
+    f32, or None in ``mode`` "du"). CPU tensors take ``lookup_bwd_plain``;
+    CUDA tensors launch the kernel (``adds``, ``mode`` and the launch
+    counts: see ``scatter_bwd``; ``shards``: see ``lookup_fwd``).
     Tables must be f32 (bf16 tables are for inference)."""
     if features.dtype != torch.float32:
         raise ValueError(f"the lookup's backward needs f32 tables, got {features.dtype}")
     if pts.device.type == "cpu":
-        return lookup_bwd_plain(pts, features, resolutions, g, NW, mode)
+        return lookup_bwd_plain(pts, features, resolutions, g, NW, mode, _wbase(meta, shards))
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
     dpts = torch.empty_like(pts)
     d_features = scatter_bwd(pts, meta, features, resolutions, g, NW, dpts, 8, adds,
-                             mode=mode)
+                             mode=mode, shards=shards)
     return dpts, d_features
 
 
 class _HashLookupSorted(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, pts, meta, features, resolutions, bwd_bf16):
-        NW = features.shape[1] // (2 * W)
+    def forward(ctx, pts, meta, features, resolutions, bwd_bf16, shards):
+        NW = features.shape[1] // (2 * W) * shards
         ctx.save_for_backward(pts, meta, features, resolutions)
-        ctx.nw, ctx.bwd_bf16 = NW, bwd_bf16
-        return lookup_fwd(pts, meta, features, resolutions, NW)
+        ctx.nw, ctx.bwd_bf16, ctx.shards = NW, bwd_bf16, shards
+        return lookup_fwd(pts, meta, features, resolutions, NW, shards=shards)
 
     @staticmethod
     def backward(ctx, g):
@@ -546,11 +574,12 @@ class _HashLookupSorted(torch.autograd.Function):
         # no table gradient is allocated
         mode = ("bf16" if ctx.bwd_bf16 else "exact") if ctx.needs_input_grad[2] else "du"
         dpts, d_features = lookup_bwd(pts, meta, features, resolutions, g.contiguous(),
-                                      ctx.nw, mode=mode)
-        return dpts, None, d_features, None, None
+                                      ctx.nw, mode=mode, shards=ctx.shards)
+        return dpts, None, d_features, None, None, None
 
 
-def hash_lookup_sorted(pts, meta, features, resolutions, bwd_bf16: bool = False) -> torch.Tensor:
+def hash_lookup_sorted(pts, meta, features, resolutions, bwd_bf16: bool = False,
+                       shards: int = 1) -> torch.Tensor:
     """Windowed hash features of a padded sorted stream (``pts``/``meta``
     from ``sort_pack`` or ``sort_pack_tables``) over the flat [L, NW*512*2]
     table (stack) -> [Np, L*2] f32 in stream order: B3 forward, B4
@@ -558,10 +587,13 @@ def hash_lookup_sorted(pts, meta, features, resolutions, bwd_bf16: bool = False)
     in rows 4-6 get no cotangent here) and in f32 tables; ``bwd_bf16``
     rounds the table gradient's contributions to bf16 (the JAX
     ``onehot_bf16``). A table that does not require grad gets no gradient
-    and B4 runs in its dL/du mode. Unlike the JAX function it takes no
+    and B4 runs in its dL/du mode. With ``shards`` > 1, ``features`` is
+    one shard of the table and ``meta`` the stream's meta localized to it
+    (``table_parallel.localize_meta``): rows of other shards get zero
+    features and zero dL/du. Unlike the JAX function it takes no
     ``visited`` blocks: the scatter into a zeroed gradient leaves
     unvisited blocks zero by itself."""
-    return _HashLookupSorted.apply(pts, meta, features, resolutions, bwd_bf16)
+    return _HashLookupSorted.apply(pts, meta, features, resolutions, bwd_bf16, shards)
 
 
 def hash_encode_windowed(points, features, resolutions, tile: int = 0,

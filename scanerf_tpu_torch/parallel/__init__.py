@@ -1,1 +1,2 @@
-"""Tiles on one card: ADMM pose consensus and the sync round."""
+"""Across devices: ranks and meshes, table and ray sharding, the tiles
+mesh with ADMM pose consensus and its sync round."""

@@ -25,8 +25,11 @@ CUDA tensors), its decoder in PyTorch, its own occupancy grid and seam
 weight, blended per sample. It is the only backend for global-hash tiles
 and for tiles whose resolution ladders differ (``shared_res=False``).
 ``render_image(early_term=True)`` slab-marches the windowed backend
-(``render/early_term.py``). ``sharded=True`` raises
-``NotImplementedError`` naming its ROADMAP item.
+(``render/early_term.py``). ``render_rays_sharded`` spreads a chunk's
+rays over the ranks of a ``rays`` axis, the scene replicated on every
+rank, and gathers the chunk on every rank; ``render_image(sharded=True)``
+renders each chunk so when the process has joined a group of several
+ranks, and is the plain render in one process, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from scanerf_tpu_torch.ops.hash_encode import hash_encode
 from scanerf_tpu_torch.ops.kernels import fused_render as fr
 from scanerf_tpu_torch.ops.kernels import hash_encode as hw
 from scanerf_tpu_torch.ops.sampling import cdf_sample_from_bounds, inverse_z_vals
+from scanerf_tpu_torch.parallel import mesh as mesh_lib
 from scanerf_tpu_torch.train.checkpoint import load_tile_export
 
 MAX_PTS_BLOCKS = 4  # most tiles blended per sample
@@ -722,20 +726,56 @@ def render_rays(scene: MultiTileScene, rays_o, rays_d, num_sample: int = 128,
     return out
 
 
+def render_rays_sharded(scene: MultiTileScene, rays_o, rays_d, mesh, device="cuda",
+                        **kwargs) -> dict:
+    """``render_rays`` of rays [N, 3] spread over the ``rays`` axis of
+    ``mesh`` (N a multiple of its size): each rank renders its contiguous
+    slice of the rays with its replica of the scene, and every rank gets
+    the whole result (an all_reduce of zero-filled slices, exact), as the
+    JAX function's ``shard_map`` with its rays sharded in and out. Both
+    backends; ``kwargs`` go to ``render_rays``."""
+    axis = mesh.axis("rays")
+    n = 1 if axis is None else axis.size
+    if rays_o.shape[0] % n:
+        raise ValueError(f"{rays_o.shape[0]} rays do not split over {n} ranks")
+    if n == 1:
+        return render_rays(scene, rays_o, rays_d, device=device, **kwargs)
+    k = rays_o.shape[0] // n
+    part = slice(axis.index * k, (axis.index + 1) * k)
+    out = render_rays(scene, rays_o[part], rays_d[part], device=device, **kwargs)
+    whole = {}
+    for key, v in out.items():
+        g = mesh_lib.gather_slices(v.to(torch.float32).contiguous(), axis, 0)
+        whole[key] = g.to(v.dtype) if v.dtype != torch.bool else g > 0.5
+    return whole
+
+
 def render_image(scene: MultiTileScene, K, c2w, H: int, W: int, chunk: int = 2**13,
                  sharded: bool = False, early_term: bool = False,
-                 early_kwargs: dict | None = None, device="cuda", **kwargs) -> dict:
+                 early_kwargs: dict | None = None, device="cuda", mesh=None,
+                 **kwargs) -> dict:
     """Full-frame render in chunks of rays -> {"rgb": [H, W, 3],
     "depth": [H, W, 1]} numpy arrays. ``kwargs`` go to ``render_rays``;
     ``early_term=True`` renders each chunk with
     ``early_term.render_rays_early`` instead (windowed tiles), which takes
-    ``early_kwargs`` (slab, term_eps, bucket_min, stats)."""
+    ``early_kwargs`` (slab, term_eps, bucket_min, stats).
+    ``sharded=True`` spreads each chunk (rounded up to a multiple of the
+    ranks) over the ``rays`` axis of ``mesh`` (default: a new mesh of
+    every rank of the joined group, made collectively;
+    ``render_rays_sharded``), every rank returning the whole frame; in
+    one process it is the plain render."""
     from scanerf_tpu_torch.utils import lie, rays as rays_mod
 
     dev = _check_device(scene, device)
-    if sharded:
-        raise NotImplementedError("sharded render is not ported yet: ROADMAP.md "
-                                  "queue A, item 13 (renderer item 'sharded render')")
+    if sharded and mesh is None and mesh_lib.world()[1] > 1:
+        mesh = mesh_lib.make_mesh({"rays": mesh_lib.world()[1]})
+    if not sharded or (mesh is not None and mesh.size("rays") == 1):
+        mesh = None
+    if mesh is not None:
+        if early_term:
+            raise ValueError("early_term is a one-rank driver")
+        n = mesh.size("rays")
+        chunk = -(-chunk // n) * n
     xy = rays_mod.pixel_grid(H, W, device=dev)
     pose = lie.invert(torch.as_tensor(np.asarray(c2w), dtype=torch.float32, device=dev))
     rays_o, rays_d = rays_mod.get_center_and_ray(
@@ -754,6 +794,8 @@ def render_image(scene: MultiTileScene, K, c2w, H: int, W: int, chunk: int = 2**
         ro, rd = rays_o[i:i + chunk], rays_d[i:i + chunk]
         if early_term:
             out = render_rays_early(scene, ro, rd, device=dev, **kw)
+        elif mesh is not None:
+            out = render_rays_sharded(scene, ro, rd, mesh, device=dev, **kwargs)
         else:
             out = render_rays(scene, ro, rd, device=dev, **kwargs)
         outs["rgb"].append(out["rgb"])

@@ -23,6 +23,16 @@ renders fg + bg with ``models/field.py::render_rays`` and applies the loss
 registry with its warm-up and decay schedules. The update is in place: the
 state's tensors are overwritten, as the JAX step donates its state.
 
+Across ranks (``parallel/mesh.py``): with ``table_shards`` > 1 the state
+holds this rank's shard of the table and of both Adam moments
+(``create_train_state(table_axis=)``) and the renders, the warp loss's
+re-render too, run over the ``table_axis``; with a ``grad_axis`` (ray
+data parallelism) ``train_step`` takes the mean of the gradients and of
+the aux metrics over it before the update, which every replica then
+applies alike. Ranks along the rays axis draw their batches from
+generators of their own (``batch_generator``); ranks along the table
+axis share one batch.
+
 Entry points (``create_train_state``, ``train_step``, ``train_n_steps``
 and the evaluation renders ``render_chunk``, ``render_depth_batch``,
 ``render_image``) take ``device`` and default to ``"cuda"``; without CUDA
@@ -41,6 +51,8 @@ from scanerf_tpu_torch.models import decoder as decoder_lib
 from scanerf_tpu_torch.models import field as field_lib
 from scanerf_tpu_torch.models.field import FieldParams, FieldState
 from scanerf_tpu_torch.ops import sampling
+from scanerf_tpu_torch.parallel import mesh as mesh_lib
+from scanerf_tpu_torch.parallel import table_parallel
 from scanerf_tpu_torch.train import cameras as cam_lib
 from scanerf_tpu_torch.train import losses
 from scanerf_tpu_torch.train.cameras import Cameras
@@ -57,8 +69,8 @@ class TrainConfig:
     ``hash_backend`` defaults to "windowed", the production path (the JAX
     dataclass defaults to "xla", the global hash, for its CPU oracles;
     tables under 2^14 entries take the global hash either way). Table and
-    ray sharding, which need several devices, raise
-    ``NotImplementedError`` in the step."""
+    ray sharding (``table_shards``, ``ray_shards``) need the mesh axes of
+    those sizes in the step."""
 
     num_sample: int = 128
     num_bg_sample: int = 128
@@ -258,13 +270,22 @@ def apply_gradients(state: TrainState, grads: dict, tc: TrainConfig) -> None:
 
 
 def create_train_state(field_params: FieldParams, field_state: FieldState,
-                       num_camera: int, tc: TrainConfig, device="cuda") -> TrainState:
+                       num_camera: int, tc: TrainConfig, device="cuda",
+                       table_axis=None) -> TrainState:
     """Fresh state: zero pose refinements, zero ADMM variables (rho =
     ``tc.rho``), zero Adam moments; params and field state must already
-    live on ``device``."""
+    live on ``device``. With ``tc.table_shards`` > 1 the whole table of
+    ``field_params`` (made from the same seed on every rank) is cut to
+    this rank's shard on ``table_axis``, so that the shards together are
+    the unsharded state; the moments follow the shard."""
     dev = _device.resolve(device)
     if field_params.features.device.type != dev.type:
         raise ValueError(f"field lives on {field_params.features.device}, asked for {dev}")
+    if tc.table_shards > 1:
+        _check_axis("table", tc.table_shards, table_axis)
+        field_params = dataclasses.replace(
+            field_params, features=table_parallel.shard_features(field_params.features,
+                                                                 table_axis))
     params = TileParams(field=field_params,
                         se3_refine=cam_lib.init_se3_refine(num_camera, device=dev))
     return TrainState(
@@ -292,27 +313,35 @@ def _check_device(t: torch.Tensor, device) -> torch.device:
     return dev
 
 
-def _check_config(tc: TrainConfig):
-    if tc.ray_shards > 1:
-        raise NotImplementedError("ray sharding is not ported yet: ROADMAP.md queue A, "
-                                  "item 'Multi-device and opt-in knobs'")
+def _check_axis(name: str, n: int, axis) -> None:
+    if n > 1 and (axis is None or axis.size != n):
+        raise ValueError(f"{n} {name} shards need a {name} axis of that size, got {axis}")
 
 
-def _render(params, field_state, rays_o, rays_d, n_fg, n_bg, stepf, tc, **kw):
+def _check_config(tc: TrainConfig, table_axis=None, grad_axis=None):
+    _check_axis("table", tc.table_shards, table_axis)
+    _check_axis("rays", tc.ray_shards, grad_axis)
+
+
+def _render(params, field_state, rays_o, rays_d, n_fg, n_bg, stepf, tc, table_axis=None,
+            **kw):
     return field_lib.render_rays(
         params, field_state, rays_o, rays_d, n_fg, n_bg, stepf,
         invalid_underground=tc.invalid_underground,
         stochastic_grad=tc.stochastic_hash_grad, backend=tc.hash_backend,
         table_shards=tc.table_shards, bwd_onehot_bf16=tc.hash_bwd_bf16,
-        fused_decoder=tc.fused_decoder, compact_dead=tc.compact_dead_rays, **kw)
+        fused_decoder=tc.fused_decoder, compact_dead=tc.compact_dead_rays,
+        table_axis=table_axis, **kw)
 
 
 def compute_losses(params: TileParams, field_state: FieldState, admm: AdmmState,
                    data: TileData, ray_idx, pixel_locs, step: int, tc: TrainConfig,
-                   stage_hook=None):
+                   stage_hook=None, table_axis=None, grad_axis=None):
     """Render the sampled rays and evaluate the loss registry -> (loss,
-    aux). ``stage_hook(name)`` is called after each stage, for timing."""
-    _check_config(tc)
+    aux). ``stage_hook(name)`` is called after each stage, for timing.
+    ``table_axis``: the axis of a sharded table (``tc.table_shards``);
+    ``grad_axis`` is only checked against ``tc.ray_shards`` here."""
+    _check_config(tc, table_axis, grad_axis)
     N_cam, H, W = data.images.shape[:3]
     B = ray_idx.shape[0]
     dev = data.images.device
@@ -332,7 +361,7 @@ def compute_losses(params: TileParams, field_state: FieldState, admm: AdmmState,
             field_state.bbox_size, tc.num_bg_sample, field_state.bbox_size.max() / 10.0)
 
     out = _render(params.field, field_state, rays_o, rays_d, tc.num_sample,
-                  tc.num_bg_sample, stepf, tc, occlusion_mask=occl, train=True,
+                  tc.num_bg_sample, stepf, tc, table_axis, occlusion_mask=occl, train=True,
                   num_march=tc.num_march, bg_z=bg_z, stage_hook=stage_hook)
     valid = out["fore_valid"] | out["bg_valid"]
     aux = {}
@@ -359,7 +388,8 @@ def compute_losses(params: TileParams, field_state: FieldState, admm: AdmmState,
         aux["smooth_loss"] = l_s
     _mark(stage_hook, "losses")
     if tc.w_warp > 0:
-        l_w = _warp_loss(params, field_state, data, out, gt_color, valid, stepf, tc)
+        l_w = _warp_loss(params, field_state, data, out, gt_color, valid, stepf, tc,
+                         table_axis)
         w = losses.warp_warmup(tc.w_warp, (stepf - tc.warp_start).clamp_min(0.0)) \
             if tc.warp_warming else tc.w_warp
         loss = loss + w * _gate(stepf, tc.warp_start) * l_w
@@ -381,9 +411,9 @@ def compute_losses(params: TileParams, field_state: FieldState, admm: AdmmState,
     return loss, aux
 
 
-def _warp_loss(params, field_state, data, out, gt_color, valid, stepf, tc):
+def _warp_loss(params, field_state, data, out, gt_color, valid, stepf, tc, table_axis=None):
     """Multi-view photometric warp loss, with its no-grad visibility
-    re-render along the neighbour rays."""
+    re-render along the neighbour rays (over the sharded table too)."""
     N_cam, H, W = data.images.shape[:3]
     rays_o, rays_d = out["rays_o"], out["rays_d"]
     pts = rays_o + out["pred_depth"] * rays_d  # gradients: depth -> field, and poses
@@ -400,7 +430,7 @@ def _warp_loss(params, field_state, data, out, gt_color, valid, stepf, tc):
     with torch.no_grad():
         nei_out = _render(field_lib.detached(params.field), field_state,
                           nei_o.reshape(-1, 3), nei_d.reshape(-1, 3), tc.warp_vis_sample,
-                          tc.warp_vis_bg_sample, stepf, tc, train=False,
+                          tc.warp_vis_bg_sample, stepf, tc, table_axis, train=False,
                           num_march=tc.warp_vis_march)
     voxel = (field_state.bbox_size
              / field_state.resolutions[-1].max().to(torch.float32)).max()
@@ -441,12 +471,24 @@ def sample_patches(generator: torch.Generator, H: int, W: int, num_patch: int,
                                 dim=-1)
 
 
+def batch_generator(seed: int, mesh=None, tile: int = 0) -> torch.Generator:
+    """The CPU generator a rank draws a tile's batches from: seeded from
+    ``seed``, the tile and the rank's index on the mesh's ``rays`` axis
+    (the JAX step folds its key with that index), so that replicas along
+    the rays axis draw independent batches and ranks along the table axis
+    the same one."""
+    rays = 0 if mesh is None else mesh.index("rays")
+    return torch.Generator().manual_seed(seed * 1000 + tile + 1_000_003 * rays)
+
+
 def compute_grads(state: TrainState, data: TileData, tc: TrainConfig,
                   generator: torch.Generator | None = None, ray_idx=None, pixel_locs=None,
-                  stage_hook=None):
+                  stage_hook=None, table_axis=None, grad_axis=None):
     """One batch's ((loss, aux), grads), grads per optimizer group. The
     batch comes from ``sample_patches(generator, ...)`` unless ``ray_idx``
-    and ``pixel_locs`` [N_cam, 4P, 2] are given."""
+    and ``pixel_locs`` [N_cam, 4P, 2] are given. ``table_axis``: see
+    ``compute_losses``; the grads are this rank's (no mean over
+    ``grad_axis`` here)."""
     N_cam, H, W = data.images.shape[:3]
     if ray_idx is None:
         num_patch = max((2**tc.batch_log2) // N_cam // 4, 1)
@@ -463,7 +505,7 @@ def compute_grads(state: TrainState, data: TileData, tc: TrainConfig,
                                    for n, d in p.field.decoder.items()}),
         se3_refine=track(p.se3_refine))
     loss, aux = compute_losses(tracked, state.field_state, state.admm, data, ray_idx,
-                               pixel_locs, state.step, tc, stage_hook)
+                               pixel_locs, state.step, tc, stage_hook, table_axis, grad_axis)
     groups = group_leaves(tracked)
     flat = [t for name in ("hash", "decoder", "cam") for t in groups[name]]
     g = torch.autograd.grad(loss, flat)
@@ -474,15 +516,37 @@ def compute_grads(state: TrainState, data: TileData, tc: TrainConfig,
                                   "cam": g[1 + n_dec:]}
 
 
+def mean_over(grads: dict, aux: dict, axis) -> tuple[dict, dict]:
+    """The gradients and the aux metrics averaged over ``axis`` (the JAX
+    step's pmean over its ``grad_axis``): each table gradient in one
+    all_reduce in place, the rest in one flat all_reduce."""
+    if axis is None or axis.size == 1:
+        return grads, aux
+    for g in grads["hash"]:
+        mesh_lib.all_reduce(g, axis).div_(axis.size)
+    small = [(k, i) for k in ("decoder", "cam") for i in range(len(grads[k]))]
+    keys = list(aux)
+    means = mesh_lib.all_reduce_mean([grads[k][i] for k, i in small]
+                                     + [aux[k] for k in keys], axis)
+    out = {"hash": grads["hash"], "decoder": list(grads["decoder"]), "cam": list(grads["cam"])}
+    for (k, i), m in zip(small, means):
+        out[k][i] = m
+    return out, dict(zip(keys, means[len(small):]))
+
+
 def train_step(state: TrainState, data: TileData, tc: TrainConfig,
                generator: torch.Generator | None = None, ray_idx=None, pixel_locs=None,
-               device="cuda", stage_hook=None):
+               device="cuda", stage_hook=None, grad_axis=None, table_axis=None):
     """One optimizer step, in place -> (state, aux). The batch is drawn
     from ``generator`` (a CPU generator) unless ``ray_idx`` and
-    ``pixel_locs`` are given."""
+    ``pixel_locs`` are given. With ``grad_axis`` (ray data parallelism,
+    ``tc.ray_shards``) the gradients and aux are averaged over it before
+    the update; ``table_axis`` carries a sharded table
+    (``tc.table_shards``)."""
     _check_device(state.params.field.features, device)
     (loss, aux), grads = compute_grads(state, data, tc, generator, ray_idx, pixel_locs,
-                                       stage_hook)
+                                       stage_hook, table_axis, grad_axis)
+    grads, aux = mean_over(grads, aux, grad_axis)
     apply_gradients(state, grads, tc)
     state.step += 1
     _mark(stage_hook, "optimizer")

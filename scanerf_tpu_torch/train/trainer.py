@@ -2,12 +2,18 @@
 ``scanerf_tpu/train/trainer.py``).
 
 The JAX package runs its tiles as one SPMD program over a device mesh;
-on one H100 every tile's state lives on the card, in a list, and each
-sync round trains the tiles one after another, then takes one ADMM
-consensus over all of them (``parallel/tile_parallel.py::admm_round``).
-With RHO > 0 a round is SYN_ITERS steps and the consensus couples the
-tiles' shared cameras; with RHO 0 the tiles train independently in
-rounds of at most MAX_ROUND_STEPS (and EVAL_STEP).
+the port runs one process per rank (``torch.distributed``, joined before
+the ``Trainer`` is built, e.g. by ``torchrun``) over the mesh
+``tile_parallel.make_tile_mesh`` builds from the world size and the
+config's TABLE_SHARDS and RAY_SHARDS. The tile count is padded to a
+multiple of the ``tiles`` axis with copies of the last tile whose
+``cam_map`` row is all -1 (trained, but neither counted in the consensus
+nor exported). Each rank keeps its tiles' states in a list, and each
+sync round trains them one after another, then takes one ADMM consensus
+over the tiles of every rank (``tile_parallel.build_admm_round``). With
+RHO > 0 a round is SYN_ITERS steps and the consensus couples the tiles'
+shared cameras; with RHO 0 the tiles train independently in rounds of at
+most MAX_ROUND_STEPS (and EVAL_STEP). One process is a mesh of one rank.
 
 Host-side duties between rounds, as in the JAX trainer:
 - occupancy pruning on the GRID_LOG2DIM ladder (``models/occupancy.py``),
@@ -20,7 +26,18 @@ Before the first round each tile gets its first occupancy grid and its
 occlusion masks from the proxy mesh (``geometry/mesh_engine.py``), in BS
 mode its background depths, and cameras padded to the largest tile's
 count (padded cameras are fully occluded). The trainer's device defaults
-to "cuda" and raises without CUDA; ``device="cpu"`` runs the plain path.
+to "cuda" (the rank's card, LOCAL_RANK modulo the cards) and raises
+without CUDA; ``device="cpu"`` runs the plain path.
+
+Across ranks the duties need whole tables: pruning, the occlusion
+refresh, evals, checkpoints and exports gather a sharded tile's table
+(and, for checkpoints, its moments) one tile at a time; every rank of a
+tile renders what the refresh publishes, the published depths are
+exchanged over the ``tiles`` axis (the last tile in order wins a
+camera, as in one process), and the rank at index 0 of the ``rays`` and
+``table`` axes writes a tile's files. Rank 0 writes ``training.log``,
+``admm_error.txt`` and ``refined_camera.log``. Checkpoints and exports
+keep the JAX package's layout whatever the mesh.
 """
 
 from __future__ import annotations
@@ -42,6 +59,8 @@ from scanerf_tpu_torch.models import field as field_lib
 from scanerf_tpu_torch.models import occupancy as occupancy_lib
 from scanerf_tpu_torch.ops.hash_encode import table_rows
 from scanerf_tpu_torch.ops.intersect import ray_aabb
+from scanerf_tpu_torch.parallel import mesh as mesh_lib
+from scanerf_tpu_torch.parallel import table_parallel
 from scanerf_tpu_torch.parallel import tile_parallel as tp
 from scanerf_tpu_torch.train import cameras as cam_lib
 from scanerf_tpu_torch.train import checkpoint as ckpt_lib
@@ -76,24 +95,30 @@ def dilate(mask: np.ndarray, size: int) -> np.ndarray:
 
 
 class Trainer:
-    def __init__(self, cfg, device="cuda"):
-        self.device = _device.resolve(device)
+    def __init__(self, cfg, device="cuda", backend: str | None = None):
+        """``backend``: the mesh groups' collective backend (default: the
+        joined group's); one process needs none."""
+        self.device = _device.resolve(mesh_lib.local_device(device))
         self.cfg = cfg
         self.tc = TrainConfig.from_cfg(cfg)
-        if self.tc.table_shards > 1 or self.tc.ray_shards > 1:
-            raise NotImplementedError(tp._MULTI_DEVICE)
+        self.mesh = tp.make_tile_mesh(self.tc.table_shards, self.tc.ray_shards, backend)
+        self.rank = mesh_lib.world()[0]
+        # this rank writes its tiles' files: index 0 of the rays and table axes
+        self.writer = self.mesh.index("rays") == 0 and self.mesh.index("table") == 0
         self.datadir = cfg.DATADIR
         self.tile_idxs: list[int] = list(cfg.TILES)
 
-        runtime = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
-        prefix = f"{cfg.PREFIX}-{runtime}" if cfg.PREFIX else runtime
-        self.logdir = os.path.join(self.datadir, "logs", prefix)
-        # two Trainers in the same second must not share a logdir
-        n = 0
-        while os.path.exists(self.logdir):
-            n += 1
-            self.logdir = os.path.join(self.datadir, "logs", f"{prefix}.{n}")
-        os.makedirs(self.logdir)
+        if self.rank == 0:
+            runtime = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+            prefix = f"{cfg.PREFIX}-{runtime}" if cfg.PREFIX else runtime
+            self.logdir = os.path.join(self.datadir, "logs", prefix)
+            # two Trainers in the same second must not share a logdir
+            n = 0
+            while os.path.exists(self.logdir):
+                n += 1
+                self.logdir = os.path.join(self.datadir, "logs", f"{prefix}.{n}")
+            os.makedirs(self.logdir)
+        self.logdir = mesh_lib.broadcast_object(self.logdir if self.rank == 0 else None)
 
         self.ks_all, self.c2ws_all, self.H, self.W = data_io.read_campara(
             os.path.join(self.datadir, "camera.log"), return_shape=True)
@@ -194,31 +219,64 @@ class Trainer:
                                       else np.zeros((len(views), H, W, 3), np.float32)),
             bg_depths=self._tensor(bg_depths) if bg_depths is not None else None)
         data = _pad_data_cams(data, max_cams)
+        table_axis = self.mesh.axis("table")
         state = tile_lib.create_train_state(params, fstate, max_cams, self.tc,
-                                            device=self.device)
+                                            device=self.device, table_axis=table_axis)
 
         # resume: an explicit CKP directory, else the datadir
         ckp_dir = str(self.cfg.get("CKP", "") or "") or self.datadir
         ckp = ckpt_lib.latest_checkpoint(ckp_dir, tile_idx)
         if ckp:
             state = ckpt_lib.load_checkpoint(ckp, state, device=self.device)
+            if table_axis is not None:  # a checkpoint holds whole tables
+                state = table_parallel.shard_state(state, table_axis)
             print(f"tile {tile_idx}: resumed from {ckp}")
         return state, data, views, info
 
     def _build_tiles(self):
+        """This rank's tiles (its slot of the ``tiles`` axis, the count
+        padded to a multiple of the axis), and every tile's cam map."""
         max_cams = max(len(self._views_for(t)) for t in self.tile_idxs)
+        n_pad = -(-len(self.tile_idxs) // self.mesh.size("tiles")) * self.mesh.size("tiles")
+        self.local_ids = tp.local_tiles(self.mesh, n_pad)  # indices into the padded list
+        # a padded slot holds a copy of the last tile
+        tiles = [self.tile_idxs[min(j, len(self.tile_idxs) - 1)] for j in self.local_ids]
         self.states, self.datas, self.infos, self.view_lists = [], [], [], []
-        for t in self.tile_idxs:
+        rows = np.zeros((n_pad, max_cams), np.int32)  # cam ids + 1, 0 = none
+        for j, t in zip(self.local_ids, tiles):
             state, data, views, info = self._build_one_tile(t, max_cams)
             self.states.append(state)
             self.datas.append(data)
             self.infos.append(info)
             self.view_lists.append(views)  # after ignore.log filtering
-        self.cam_maps = tp.make_cam_maps(self.view_lists, max_cams)
-        self.cam_map = torch.from_numpy(self.cam_maps).to(self.device)
+            if j < len(self.tile_idxs):
+                rows[j, :len(views[:max_cams])] = np.asarray(views[:max_cams]) + 1
+        # every tile's cam map: each tile's row from its slot of the tiles axis
+        rows_t = mesh_lib.all_reduce(torch.from_numpy(rows).to(self.device),
+                                     self.mesh.axis("tiles"))
+        self.cam_maps = rows_t.cpu().numpy().astype(np.int32) - 1  # [T_pad, M], -1 padding
+        self.cam_map = torch.from_numpy(self.cam_maps[self.local_ids]).to(self.device)
         self.confidence = torch.ones(self.cam_map.shape, device=self.device)
-        self.generators = [torch.Generator().manual_seed(self.cfg.SEED * 1000 + t)
-                           for t in self.tile_idxs]
+        self.generators = [tile_lib.batch_generator(self.cfg.SEED, self.mesh, t)
+                           for t in tiles]
+        self.round_fn = {}  # the round of each size, built at its first use
+
+    def _real(self):
+        """(state, data, info, views, tile id) of this rank's real tiles (not
+        the padding)."""
+        return [(s, d, i, v, self.tile_idxs[j]) for s, d, i, v, j in
+                zip(self.states, self.datas, self.infos, self.view_lists, self.local_ids)
+                if j < len(self.tile_idxs)]
+
+    def _whole(self, state):
+        """``state`` with its whole table (a gather over the ``table``
+        axis, which every rank of the tile calls)."""
+        return table_parallel.gather_state(state, self.mesh.axis("table"))
+
+    @property
+    def _tc_whole(self) -> TrainConfig:
+        """The config for renders of gathered (whole) tables."""
+        return dataclasses.replace(self.tc, table_shards=1, ray_shards=1)
 
     # ------------------------------------------------------------------
     # training loop
@@ -245,18 +303,25 @@ class Trainer:
         cfg = self.cfg
         syn = self.round_size()
         t0 = time.time()
-        losses, aux = tp.admm_round(self.states, self.datas, self.cam_map, self.confidence,
-                                    self.tc, syn, self.num_global_cams, self.generators,
-                                    device=self.device)
-        losses = losses.cpu().numpy()
+        if syn not in self.round_fn:
+            self.round_fn[syn] = tp.build_admm_round(self.mesh, self.tc, syn,
+                                                     self.num_global_cams)
+        tiles = tp.ParallelTiles(self.states, self.cam_map, self.confidence, self.local_ids)
+        local, aux = self.round_fn[syn](tiles, self.datas, self.generators)
+        # every tile's last loss, from its slot of the tiles axis
+        losses = torch.zeros(len(self.cam_maps), device=self.device)
+        losses[self.local_ids] = local.detach().to(torch.float32)
+        losses = mesh_lib.all_reduce(losses, self.mesh.axis("tiles")).cpu().numpy()
         step = self.states[0].step
         dt = time.time() - t0
-        with open(os.path.join(self.logdir, "training.log"), "a") as f:
-            f.write(f"step {step}\tloss {losses.mean():.6f}\t{dt:.1f}s/round\n")
-        if cfg.RHO > 0:
-            with open(os.path.join(self.logdir, "admm_error.txt"), "a") as f:
-                f.write(f"primal_residual: {float(aux.primal_residual):.8f}\t"
-                        f"dual_residual: {float(aux.dual_residual):.8f}\n")
+        if self.rank == 0:
+            with open(os.path.join(self.logdir, "training.log"), "a") as f:
+                f.write(f"step {step}\tloss {losses[:len(self.tile_idxs)].mean():.6f}\t"
+                        f"{dt:.1f}s/round\n")
+            if cfg.RHO > 0:
+                with open(os.path.join(self.logdir, "admm_error.txt"), "a") as f:
+                    f.write(f"primal_residual: {float(aux.primal_residual):.8f}\t"
+                            f"dual_residual: {float(aux.dual_residual):.8f}\n")
 
         if self.pruning.should_prune(step, round_size=syn):
             self._prune(step)
@@ -272,11 +337,14 @@ class Trainer:
         return aux
 
     def _save_round_checkpoints(self, step: int):
-        """checkpoint-{step}-{tile}.npz for every tile; older periodic saves
-        of the tile are removed."""
-        for s, tile_idx in zip(self.states, self.tile_idxs):
+        """checkpoint-{step}-{tile}.npz for every tile (whole tables); older
+        periodic saves of the tile are removed."""
+        for s, _, _, _, tile_idx in self._real():
+            whole = self._whole(s)
+            if not self.writer:
+                continue
             path = ckpt_lib.checkpoint_path(self.logdir, step, tile_idx)
-            ckpt_lib.save_checkpoint(path, s)
+            ckpt_lib.save_checkpoint(path, whole)
             for old in glob.glob(os.path.join(self.logdir, f"checkpoint-*-{tile_idx}.npz")):
                 if old != path:
                     os.remove(old)
@@ -284,28 +352,33 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _backend(self, state) -> str:
-        return field_lib.effective_backend(self.tc.hash_backend,
-                                           table_rows(state.params.field.features))
+        return field_lib.effective_backend(
+            self.tc.hash_backend, table_rows(state.params.field.features) * self.tc.table_shards)
 
     def _prune(self, step: int):
-        """Re-derive every tile's occupancy at the ladder's next rung."""
+        """Re-derive every tile's occupancy at the ladder's next rung (each
+        rank of a tile prunes its gathered table alike)."""
         sub_split, th = self.pruning.next_at(step)
         for s in self.states:
             finest = s.field_state.resolutions[-1].cpu().numpy()
+            whole = self._whole(s)
             s.field_state = occupancy_lib.prune_occupancy(
-                s.params.field, s.field_state, step, finest, sub_split, th,
+                whole.params.field, s.field_state, step, finest, sub_split, th,
                 backend=self._backend(s))
+            del whole
         print(f"step {step}: pruned occupancy (n_split={sub_split}, th={th})")
 
     def _refresh_occlusion_masks(self) -> int:
         """Cross-tile occlusion-mask refresh. Each tile renders half-size
         depth maps of its cameras whose centre lies inside it and publishes
-        them per global camera; every other tile holding such a camera
-        keeps a pixel trainable only where the published depth lies beyond
-        its own box entry, with the untrainable region dilated by a 91-wide
-        box. Returns how many depths were published."""
+        them per global camera (the last tile in order wins a camera that
+        several publish; across ranks the choice and the maps go over the
+        ``tiles`` axis); every other tile holding such a camera keeps a
+        pixel trainable only where the published depth lies beyond its own
+        box entry, with the untrainable region dilated by a 91-wide box.
+        Returns how many depths were published."""
         H, W = self.H, self.W
-        shared_depth: dict[int, np.ndarray] = {}
+        tiles_axis = self.mesh.axis("tiles")
 
         def eye_inside(rt, info):
             center = info.corner + info.size / 2.0
@@ -315,19 +388,34 @@ class Trainer:
         rts_all = [cam_lib.get_rts(d.cameras, s.params.se3_refine).detach().cpu().numpy()
                    for s, d in zip(self.states, self.datas)]
         # publish: all qualifying views of a tile in one chunked stream
-        for s, d, info, views, rts in zip(self.states, self.datas, self.infos,
-                                          self.view_lists, rts_all):
+        published: dict[int, tuple[int, np.ndarray]] = {}
+        for s, d, info, views, rts, j in zip(self.states, self.datas, self.infos,
+                                             self.view_lists, rts_all, self.local_ids):
+            if j >= len(self.tile_idxs):
+                continue  # padding publishes nothing
             inside = [(li, gv) for li, gv in enumerate(views) if eye_inside(rts[li], info)]
             if not inside:
                 continue
             depths = tile_lib.render_depth_batch(
-                s, d.cameras, [li for li, _ in inside], H // 2, W // 2,
-                dataclasses.replace(self.tc, num_march=min(self.tc.num_march, 256)),
+                self._whole(s), d.cameras, [li for li, _ in inside], H // 2, W // 2,
+                dataclasses.replace(self._tc_whole, num_march=min(self.tc.num_march, 256)),
                 chunk=2**14, k_scale=((W // 2) / W, (H // 2) / H), device=self.device)
             for k, (_, gv) in enumerate(inside):
-                shared_depth[gv] = depths[k]
-        if not shared_depth:
+                published[gv] = (j, depths[k])
+        # each camera's publisher over the ranks, then its map
+        pub = torch.full((self.num_global_cams,), -1, dtype=torch.int32, device=self.device)
+        for gv, (j, _) in published.items():
+            pub[gv] = j
+        pub = mesh_lib.all_reduce(pub, tiles_axis, "max").cpu().numpy()
+        cams = [int(gv) for gv in np.flatnonzero(pub >= 0)]
+        if not cams:
             return 0
+        maps = torch.zeros((len(cams), H // 2, W // 2), device=self.device)
+        for k, gv in enumerate(cams):
+            if gv in published and published[gv][0] == pub[gv]:
+                maps[k] = torch.from_numpy(published[gv][1])
+        maps = mesh_lib.all_reduce(maps, tiles_axis).cpu().numpy()
+        shared_depth = {gv: maps[k] for k, gv in enumerate(cams)}
 
         for i, (d, info, views, rts) in enumerate(zip(self.datas, self.infos,
                                                       self.view_lists, rts_all)):
@@ -351,23 +439,27 @@ class Trainer:
                 changed = True
             if changed:
                 self.datas[i] = dataclasses.replace(d, occlusions=self._tensor(occl))
-        print(f"refreshed occlusion masks from {len(shared_depth)} shared depths")
+        if self.rank == 0:
+            print(f"refreshed occlusion masks from {len(shared_depth)} shared depths")
         return len(shared_depth)
 
     def _eval(self, step: int) -> dict[int, tuple[float, float]]:
         """Eval render of each tile's first test view (its first view
         without one): PSNR / SSIM into training.log with a panel image,
         the pose snapshot, and the pose error against camera-gt.log when
-        the scene has one -> {tile: (psnr, ssim)}."""
+        the scene has one -> {tile: (psnr, ssim)} of the tiles this rank
+        writes."""
         out = {}
         log = os.path.join(self.logdir, "training.log")
-        for s, d, tile_idx, views in zip(self.states, self.datas, self.tile_idxs,
-                                         self.view_lists):
+        for s, d, _, views, tile_idx in self._real():
+            whole = self._whole(s)
+            if not self.writer:
+                continue
             test = self.test_idxs.get(tile_idx, [])
             eval_local = [views.index(v) for v in test if v in views] or [0]
             for li in eval_local[:1]:
-                img = tile_lib.render_image(s, d.cameras, li, self.H, self.W, self.tc,
-                                            device=self.device)
+                img = tile_lib.render_image(whole, d.cameras, li, self.H, self.W,
+                                            self._tc_whole, device=self.device)
                 rgb = torch.from_numpy(img["rgb"])
                 gt = d.images[li].cpu()
                 p, ss = float(metrics.psnr(rgb, gt)), float(metrics.ssim(rgb, gt))
@@ -391,25 +483,30 @@ class Trainer:
         return out
 
     def _export(self):
-        """Per-tile exports and checkpoints, and ``refined_camera.log``:
-        each global camera's refinement averaged over the tiles holding
-        it, composed with the known pose noise onto the clean poses."""
-        shared_avg = np.zeros((self.num_global_cams, 6), np.float32)
-        counts = np.zeros(self.num_global_cams, np.float32)
-        for s, d, tile_idx, views in zip(self.states, self.datas, self.tile_idxs,
-                                         self.view_lists):
+        """Per-tile exports and checkpoints (whole tables), and
+        ``refined_camera.log``: each global camera's refinement averaged
+        over the tiles holding it (over every rank), composed with the
+        known pose noise onto the clean poses."""
+        sums = torch.zeros((self.num_global_cams, 7), device=self.device)
+        for s, d, _, views, tile_idx in self._real():
+            whole = self._whole(s)
             n_real = len(views)
-            ckpt_lib.export_tile(
-                os.path.join(self.logdir, f"tile-{tile_idx}"), _slice_state_cams(s, n_real),
-                _slice_cams(d.cameras, n_real), views,
-                hash_layout="windowed" if self._backend(s) == "windowed" else "global")
-            ckpt_lib.save_checkpoint(ckpt_lib.checkpoint_path(self.logdir, s.step, tile_idx),
-                                     s)
-            se3 = s.params.se3_refine.detach().cpu().numpy()[:n_real]
-            for j, v in enumerate(views):
-                shared_avg[v] += se3[j]
-                counts[v] += 1
-        shared_avg /= np.maximum(counts, 1)[:, None]
+            if self.writer:
+                ckpt_lib.export_tile(
+                    os.path.join(self.logdir, f"tile-{tile_idx}"),
+                    _slice_state_cams(whole, n_real), _slice_cams(d.cameras, n_real), views,
+                    hash_layout="windowed" if self._backend(s) == "windowed" else "global")
+                ckpt_lib.save_checkpoint(
+                    ckpt_lib.checkpoint_path(self.logdir, s.step, tile_idx), whole)
+            del whole
+            se3 = s.params.se3_refine.detach()[:n_real]
+            idx = torch.as_tensor(views, device=self.device)
+            sums[:, :6].index_add_(0, idx, se3)
+            sums[:, 6].index_add_(0, idx, torch.ones(n_real, device=self.device))
+        sums = mesh_lib.all_reduce(sums, self.mesh.axis("tiles")).cpu().numpy()
+        if self.rank != 0:
+            return
+        shared_avg = sums[:, :6] / np.maximum(sums[:, 6], 1)[:, None]
         ori_rts = lie.invert(torch.from_numpy(self.c2ws_all))
         base_rts = lie.compose([lie.se3_to_SE3(torch.from_numpy(self.noise_table)), ori_rts])
         refined_rts = lie.compose([lie.se3_to_SE3(torch.from_numpy(shared_avg)), base_rts])

@@ -87,8 +87,9 @@ def test_port_imports_no_jax():
 
 def test_entry_points_need_cuda(tmp_path):
     """(a) without CUDA the entry points raise when no device is given;
-    the sharded render, which the port does not have yet, raises
-    NotImplementedError; the staged backend and early termination run."""
+    the sharded render in one process (no process group) is the plain
+    render, as in the JAX package; the staged backend and early
+    termination run."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is valid")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -108,8 +109,12 @@ def test_entry_points_need_cuda(tmp_path):
     small = dict(num_sample=4, num_bg_sample=4, num_march=8)
     out = tr.render_rays(scene, z, np.ones_like(z), device="cpu", backend="xla", **small)
     assert out["rgb"].shape == (4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.render_image(scene, np.eye(3), np.eye(3, 4), 2, 2, device="cpu", sharded=True)
+    one = tr.render_image(scene, np.eye(3), np.eye(3, 4), 2, 2, device="cpu", backend="xla",
+                          **small)
+    sharded = tr.render_image(scene, np.eye(3), np.eye(3, 4), 2, 2, device="cpu",
+                              sharded=True, backend="xla", **small)
+    for k in one:
+        np.testing.assert_array_equal(sharded[k], one[k])
     img = tr.render_image(scene, np.eye(3), np.eye(3, 4), 2, 2, device="cpu", early_term=True,
                           early_kwargs=dict(slab=4), **small)
     assert img["rgb"].shape == (2, 2, 3)

@@ -110,7 +110,7 @@ def test_windowed_matches_staged_and_options():
     """The port's windowed render equals its staged render on windowed
     tiles (T = 2 <= 4 blended tiles: the same slot sets); ``auto`` picks
     windowed there and staged for global-hash tiles, ``windowed`` raises
-    on those, and ``sharded`` still raises naming queue A item 13."""
+    on those, and ``sharded`` in one process is the plain frame."""
     _, ts = _port_scene(seed=11)
     o, d = _rays(24, 2, 12)
     w = tr.render_rays(ts, o, d, device="cpu", backend="windowed", **KW)
@@ -124,8 +124,11 @@ def test_windowed_matches_staged_and_options():
         tr.render_rays(tg, o, d, device="cpu", backend="windowed", **KW)
     with pytest.raises(ValueError, match="windowed"):
         tet.render_rays_early(tg, o, d, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tr.render_image(ts, np.eye(3), np.eye(3, 4), 2, 2, device="cpu", sharded=True)
+    one = tr.render_image(ts, np.eye(3), np.eye(3, 4), 2, 2, device="cpu", **KW)
+    sharded = tr.render_image(ts, np.eye(3), np.eye(3, 4), 2, 2, device="cpu", sharded=True,
+                              **KW)
+    for k in one:
+        np.testing.assert_array_equal(sharded[k], one[k])
 
 
 def test_early_eps0_matches_one_shot():

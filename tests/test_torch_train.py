@@ -586,9 +586,11 @@ def test_optimizer_update_matches_optax(cam_start):
 def test_train_entry_points_need_cuda_and_unported_options_raise():
     """Without CUDA the training entry points (the evaluation renders
     too) raise unless asked for the CPU; the options that need several
-    devices (sharded tables, sharded rays) raise NotImplementedError
-    naming their ROADMAP item (the single-device knobs are held in
-    tests/test_torch_knobs.py)."""
+    devices (sharded tables, sharded rays) raise without the mesh axis
+    they need (the single-device knobs are held in
+    tests/test_torch_knobs.py; the multi-device paths in
+    tests/test_torch_table_parallel.py, test_torch_ray_parallel.py and
+    test_torch_multi.py)."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is valid")
     gen = torch.Generator().manual_seed(0)
@@ -613,9 +615,9 @@ def test_train_entry_points_need_cuda_and_unported_options_raise():
         convert.train_state(_tiny_jax_state(jtile.TrainConfig(), n_cam=2))
     o = torch.zeros(4, 3)
     d = torch.ones(4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="table axis"):
         tfield.render_rays(params, fs, o, d, 4, 4, torch.tensor(0.0), table_shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="rays axis"):
         ttile.compute_losses(state.params, fs, state.admm, None, None, None, 0,
                              ttile.TrainConfig(ray_shards=2))
 
