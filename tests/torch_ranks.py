@@ -18,6 +18,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import time
 import traceback
 
 import numpy as np
@@ -32,10 +33,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run(world: int, jobs: list, timeout: float = 240.0) -> list:
+def run(world: int, jobs: list, timeout: float = 150.0) -> list:
     """Run ``jobs`` ([(name, kwargs)]) on ``world`` gloo ranks -> results
     [rank][job]. A start whose port another process took in the meantime
-    is tried once more on a new port."""
+    is tried once more on a new port. ``timeout`` stays below
+    TEST_LIMIT_S of the repo's conftest.py, so ranks that hang fail the test with this
+    module's message before the limit ends the worker."""
     try:
         return _run(world, jobs, timeout)
     except RuntimeError as e:
@@ -55,8 +58,13 @@ def _run(world: int, jobs: list, timeout: float) -> list:
         procs = [subprocess.Popen(
             [sys.executable, os.path.join(HERE, "torch_ranks.py"), str(r), str(world), str(port),
              tmp], env=env, stdout=subprocess.DEVNULL, stderr=errs[r]) for r in range(world)]
+        deadline = time.monotonic() + timeout
+        hung = False
         try:
-            codes = [p.wait(timeout=timeout) for p in procs]
+            codes = [p.wait(timeout=max(deadline - time.monotonic(), 0.0)) for p in procs]
+        except subprocess.TimeoutExpired:
+            hung = True
+            codes = [p.poll() for p in procs]
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -64,9 +72,14 @@ def _run(world: int, jobs: list, timeout: float) -> list:
                     p.wait()
             for f in errs:
                 f.close()
-        if any(codes):
+        # the tails of the ranks that failed: with a hang, most often the cause
+        if hung or any(codes):
             errs = "".join(open(os.path.join(tmp, f"err{r}.txt")).read()[-3000:]
                            for r, c in enumerate(codes) if c)
+            if hung:
+                raise RuntimeError(f"ranks still running after the {timeout:g} s limit (world "
+                                   f"{world}, jobs {[name for name, _ in jobs]}, exit codes "
+                                   f"{codes}, None still running):\n{errs}")
             raise RuntimeError(f"ranks exited {codes}:\n{errs}")
         out = []
         for r in range(world):
