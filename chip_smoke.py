@@ -20,12 +20,16 @@ real widths; all from a fixed seed), loads it with
 8192 rays, 128 fg + 128 bg samples, a 512-step march, up to 4 blended
 tiles) with ``render_image`` from two views: one from outside the tile
 grid, where few rays meet occupied cells, and one from inside it looking
-down, where all do; each view fused (B1, B2, B7) and unfused (B1, B2, B3
-and each tile's decoder in PyTorch), the unfused frame held against the
-fused one. Then it holds every kernel of that path against its plain
-PyTorch version on the card at the render's shapes (B1 bit for bit; B3
-and B7 with f32 and bf16 tables, B3 also on a stream whose chunks span up
-to a whole block of windows, so that every pass of its staging runs),
+down, where all do; each view fused (B1, the row kernel, B2's gather
+mode, B7) and unfused (B1, the row kernel, B2's gather mode, B3 and each
+tile's decoder in PyTorch), the unfused frame held against the fused one.
+Then it holds every kernel of that path against its plain PyTorch version
+on the card at the render's shapes (B1 bit for bit; the row kernel and
+B2's gather mode bit for bit, B2's gather also against the stream of the
+composition it replaced, and B2's copy mode on that composition's
+columns; B3 and B7 with f32 and bf16 tables, B3 also on a stream whose
+chunks span up to a whole block of windows, so that every pass of its
+staging runs), times the chunk's stream layer both ways,
 holds the card's render of a few hundred rays of each view in each
 configuration against the plain render on the CPU, and times the kernels
 and the render's stages with CUDA events (B1 also its kernel alone, with
@@ -390,9 +394,13 @@ class Capture:
 
 
 def render_targets(sp, hw, fr):
-    """The render's kernel wrappers for ``Capture``: B1, B2, B3 and B7."""
-    return ((sp, "sample_fused", "B1"), (hw, "pack", "B2"), (hw, "lookup_fwd", "B3"),
-            (fr, "hash_decode_fused", "B7"))
+    """The render's kernel wrappers for ``Capture``: B1, B2 (both modes),
+    B3, B7 and the row kernel."""
+    from scanerf_tpu_torch.ops.kernels import row_build
+
+    return ((sp, "sample_fused", "B1"), (hw, "pack", "B2"), (hw, "pack_gather", "B2g"),
+            (hw, "lookup_fwd", "B3"), (fr, "hash_decode_fused", "B7"),
+            (row_build, "build_rows", "rows"))
 
 
 class B4Launches:
@@ -2393,7 +2401,8 @@ MULTI_LOG2_H = 24  # config/paper_2p24_2chip.yaml's table, TABLE_SHARDS 2
 MULTI_TIMED = 3  # timed table-sharded steps after one warm-up
 MULTI_CITY_STEPS = 5  # steps of each tile in the tiles mesh's round
 MULTI_TIMEOUT_S = 600
-MULTI_KIND = dict(SERVE_KIND, B5="fused_train_fwd", B6="fused_train_bwd")
+MULTI_KIND = dict(SERVE_KIND, B2g="stream_pack_gather", B5="fused_train_fwd",
+                  B6="fused_train_bwd")
 # Limits of the multi phase:
 # - (a) the table-sharded step against the unsharded step on the same
 #   batch and card: the train phase's fused-against-unfused limits
@@ -2430,8 +2439,8 @@ def _multi_counters():
             for m in hw.scatter_bwd.launches:
                 hw.scatter_bwd.launches[m] = n
 
-    return {"B1": sp.sample_fused, "B2": hw.pack, "B3": hw.lookup_fwd, "B4": B4All(),
-            "B5": ft.train_fwd, "B6": ft.train_bwd, "B7": fr.hash_decode_fused}
+    return {"B1": sp.sample_fused, "B2": hw.pack, "B2g": hw.pack_gather, "B3": hw.lookup_fwd,
+            "B4": B4All(), "B5": ft.train_fwd, "B6": ft.train_bwd, "B7": fr.hash_decode_fused}
 
 
 class _Counted:
@@ -2877,7 +2886,7 @@ def _multi_render(rank, world, counters, total, render_dirs):
         for k, tol in RENDER_TOL:
             if k in errs and not errs[k] <= tol:
                 fail(f"multi (d) rank {rank}: the sharded frame ({label}) differs in {k}")
-        need = ("B1", "B2", "B7") if fuse else ("B1", "B2", "B3")
+        need = ("B1", "B2g", "B7") if fuse else ("B1", "B2g", "B3")
         for k in need:
             if counted.got[k] <= 0:
                 fail(f"multi (d) rank {rank}: kernel {k} was not launched ({label})")
@@ -3025,6 +3034,95 @@ def occupancy_report(build) -> None:
           f"({render_smem} B)")
 
 
+def row_build_entry(scene, a, kw, launches: int) -> dict:
+    """The row kernel on a captured chunk's arguments: bit for bit against
+    its plain version (keys, payload, slot tables), its tally of the
+    chunk's rows and live rows, and its time as the render launches it
+    (no tally) and with the tally. Bytes: the chunk's inputs read once and
+    the outputs written once (the scene's LUT, boxes and union grid, read
+    through the cache, are left out)."""
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+    from scanerf_tpu_torch.ops.kernels import row_build as rb
+    from scanerf_tpu_torch.render import renderer
+
+    _, _, z, _, zb, bt, _, _, Kf = a
+    tally = torch.zeros(2, dtype=torch.int64, device="cuda")
+    got = rb.build_rows(*a, tally=tally, **kw)
+    want = renderer._stream_rows_plain(scene, *a)
+    if not (torch.equal(got.keys, want.keys) and torch.equal(got.payload, want.payload)
+            and all(torch.equal(x, y) for x, y in zip(got.slots, want.slots))):
+        fail("the row kernel differs from the plain composition (must be exact)")
+    N, S = z.shape
+    Sb, Kb = zb.shape[1], bt.shape[1]
+    R = got.keys.shape[0]
+    live = int((got.keys < hw.geometry(scene.table_size)[0] * scene.n_tiles).sum())
+    if tally.tolist() != [R, live]:
+        fail(f"the row kernel's tally {tally.tolist()} is not [{R}, {live}]")
+    nbytes = (2 + 2 + 4 * S + 4 * Sb + 8 * Kb) * N + 20 * R + 6 * N * S * Kf
+    ms = timed(lambda: rb.build_rows(*a, **kw), 20)
+    tally_ms = timed(lambda: rb.build_rows(*a, tally=tally, **kw), 20)
+    plain_ms = timed(lambda: renderer._stream_rows_plain(scene, *a), 3)
+    print(f"row kernel: {N} rays x ({Kf} x {S} fg + {Kb} x {Sb} bg samples) = {R} rows, "
+          f"{live} live ({100 * live / R:.2f}%): exact; {ms:.4f} ms, with the tally "
+          f"{tally_ms:.4f} ms, plain {plain_ms:.3f} ms, {nbytes / 1e6:.1f} MB")
+    return dict(name="row_build", route="cuda", source="scanerf_tpu_torch/csrc/row_build.cu",
+                replaces=None, launches=launches, max_abs_err=0.0, ms=ms, tally_ms=tally_ms,
+                plain_ms=plain_ms, bytes=nbytes, ops=0, library_ms=None, rows=R,
+                live_rows=live)
+
+
+def gather_entry(a, stream_old, launches: int) -> dict:
+    """B2's gather mode on a captured chunk's arguments: bit for bit
+    against its plain version and against the stream of today's
+    composition (``sort_pack_tables``), and its time. Bytes: keys,
+    permutation and payload read once a row, directions and descriptors
+    once, the stream written once."""
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+
+    keys, perm, payload, dirs, desc, NC, _ = a
+    got = hw.pack_gather(*a)
+    if not all(torch.equal(x, y) for x, y in zip(got, hw.pack_gather_plain(*a))):
+        fail("B2's gather mode differs from its plain version (must be exact)")
+    if not all(torch.equal(x, y) for x, y in zip(got, (stream_old.pts, stream_old.pidp,
+                                                       stream_old.meta))):
+        fail("B2's gather mode differs from today's composition's stream (must be exact)")
+    R, Np = keys.shape[0], NC * hw.CHUNK
+    nbytes = 28 * R + 12 * dirs.shape[0] + 8 * NC + 36 * Np + 16 * hw.SUBT * NC
+    ms = timed(lambda: hw.pack_gather(*a), 20)
+    plain_ms = timed(lambda: hw.pack_gather_plain(*a), 3)
+    lib_ms = timed(lambda: payload.index_select(0, perm), 20)  # the payload gather alone
+    print(f"B2 gather mode: {R} rows -> {NC} chunks: exact, and equal to today's stream; "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, index_select of the payload {lib_ms:.4f} ms")
+    return dict(name="stream_pack_gather", route="cuda", source="scanerf_tpu_torch/csrc/pack.cu",
+                replaces="scanerf_tpu/ops/pallas/hash_encode.py:284 (a mode of B2)",
+                launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                ops=0, library_ms=lib_ms)
+
+
+def stream_layer_times(scene, ro, rd, z, valid, zb, bt, bw, bv, Kf) -> None:
+    """A chunk's slots + sort_pack, composed as before the row kernel and
+    as now, and the window sort alone (CUDA events, whole calls)."""
+    from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+    from scanerf_tpu_torch.render import renderer
+
+    H, T = scene.table_size, scene.n_tiles
+
+    def composed():
+        fg = renderer._fg_rows(scene, ro, rd, z, valid, Kf)
+        bg = renderer._bg_rows(scene, ro, rd, zb, bt, bw, bv)
+        X, TID, DIR, DEAD = (torch.cat([f, b]) for f, b in zip(fg[:4], bg))
+        return hw.sort_pack_tables(X, DIR, TID, H, T, dead=DEAD)
+
+    def keyed():
+        built = renderer._stream_rows(scene, ro, rd, z, valid, zb, bt, bw, bv, Kf)
+        return hw.sort_pack_keys(built.keys, built.payload, rd, H, T)
+
+    keys = renderer._stream_rows(scene, ro, rd, z, valid, zb, bt, bw, bv, Kf).keys
+    print(f"stream layer, one chunk (slots + sort_pack): composed {timed(composed, 5):.3f} ms, "
+          f"row kernel + sort + gather {timed(keyed, 10):.3f} ms; torch.sort of the "
+          f"{keys.shape[0]} keys alone {timed(lambda: torch.sort(keys, stable=True), 10):.3f} ms")
+
+
 def b1_shape(label: str, a, kw, iters: int) -> dict:
     """B1 on one call's captured arguments: z and totals against the plain
     version (bit for bit: the kernel rounds every operation as the plain
@@ -3071,6 +3169,7 @@ def main() -> None:
     from scanerf_tpu_torch import _build
     from scanerf_tpu_torch.ops.kernels import fused_render as fr
     from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+    from scanerf_tpu_torch.ops.kernels import row_build as rb
     from scanerf_tpu_torch.ops.kernels import sampler as sp
     from scanerf_tpu_torch.render import renderer
     from scanerf_tpu_torch.utils import lie, rays as rays_mod
@@ -3117,8 +3216,11 @@ def main() -> None:
 
     # --- warm-up renders, then the counted main path: both views, in the
     # fused configuration (B7) and the unfused one (B3 + the decoder) ----
-    counters = {True: {"B1": sp.sample_fused, "B2": hw.pack, "B7": fr.hash_decode_fused},
-                False: {"B1": sp.sample_fused, "B2": hw.pack, "B3": hw.lookup_fwd}}
+    # B2's copy mode (hw.pack) is off the render path: its count must stay 0
+    counters = {True: {"B1": sp.sample_fused, "rows": rb.build_rows, "B2": hw.pack,
+                       "B2g": hw.pack_gather, "B7": fr.hash_decode_fused},
+                False: {"B1": sp.sample_fused, "rows": rb.build_rows, "B2": hw.pack,
+                        "B2g": hw.pack_gather, "B3": hw.lookup_fwd}}
     stage_ms: dict[tuple, dict[str, float]] = {}
     launches: dict[bool, dict[str, int]] = {}
     for fuse in (True, False):
@@ -3159,7 +3261,9 @@ def main() -> None:
         print(f"launches in the counted renders{label} ({len(views)} views x {n_chunks} "
               f"chunks): {launches[fuse]}")
         for k, n in launches[fuse].items():
-            if n <= 0:
+            if k == "B2" and n != 0:
+                fail(f"B2's copy mode was launched {n} times on the render path{label}")
+            if k != "B2" and n <= 0:
                 fail(f"kernel {k} was not launched on the render path{label}")
 
     # --- per view: share of rays that meet occupied cells, the unfused
@@ -3223,9 +3327,32 @@ def main() -> None:
         ms=b1["ms"], kernel_ms=b1["kernel_ms"], plain_ms=b1["plain_ms"],
         bytes=b1["bytes"], ops=b1["ops"], library_ms=None))
 
-    # B2: the stream pack
-    a, kw = cap.args["B2"]
-    src, pids, desc, NC, pad_wid = a
+    # the row kernel: its keys, payload and slot tables against the plain
+    # composition (renderer._stream_rows_plain), bit for bit
+    a, kw = cap.args["rows"]
+    rows.append(row_build_entry(scene, a, kw, launches[True]["rows"] + launches[False]["rows"]))
+    # B2's copy mode on the same chunk: the columns of the composition the
+    # row kernel replaced
+    (ro_c, rd_c, z_c, valid_c, zb_c, bt_c, bw_c, bv_c, Kf_c) = a
+    fg = renderer._fg_rows(scene, ro_c, rd_c, z_c, valid_c, Kf_c)
+    bg = renderer._bg_rows(scene, ro_c, rd_c, zb_c, bt_c, bw_c, bv_c)
+    X, TID, DIR, DEAD = (torch.cat([f, b]) for f, b in zip(fg[:4], bg))
+    src, pids, ws, pad_wid = hw.sort_columns(X, DIR, TID, scene.table_size, T_TILES, DEAD)
+    desc, _ = hw.chunk_descriptors(ws, X.shape[0], scene.table_size, T_TILES)
+    NC = desc.shape[0]
+    a, kw = (src, pids, desc, NC, pad_wid), {}
+    stream_old = hw.sort_pack_tables(X, DIR, TID, scene.table_size, T_TILES, dead=DEAD)
+    del fg, bg, X, TID, DIR, DEAD
+    # B2's gather mode, as the render launched it: against its plain
+    # version and against the copy mode's stream of today's composition
+    rows.append(gather_entry(cap.args["B2g"][0], stream_old,
+                             launches[True]["B2g"] + launches[False]["B2g"]))
+    del stream_old
+    # the chunk's stream layer end to end: today's composition against the
+    # row kernel, the sort and the gather
+    stream_layer_times(scene, *cap.args["rows"][0])
+
+    # B2: the stream pack (copy mode)
     pts_k, pidp_k = hw.pack(*a, **kw)
     pts_p, pidp_p = hw.pack_plain(*a, **kw)
     if not (torch.equal(pts_k, pts_p) and torch.equal(pidp_k, pidp_p)):

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "scanerf_tpu_torch"
-SOURCES = ("sampler", "pack", "fused_render", "fused_train", "hash_encode")
+SOURCES = ("sampler", "pack", "fused_render", "fused_train", "hash_encode", "row_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -18,7 +18,13 @@ device memory bounds it: 32 bytes read and 36 written per stream row.
 The window sort itself stays ``torch.sort(stable=True)``, like the
 ``lax.sort`` before it: a stable sort gives the same order, so the
 stream equals the JAX stream field by field. Point ids are int32 here
-(the TPU kernel carried them as f32, exact only below 2^24).
+(the TPU kernel carried them as f32, exact only below 2^24). B2 has a
+second mode, a compile-time flag of the same kernel: ``pack_gather``
+reads each sorted row's payload through the sort's permutation instead
+of from sorted columns, and writes the stream's ``meta`` as it packs.
+``sort_pack_keys`` builds the stream so from rows that come keyed (the
+windowed render's, ``ops/kernels/row_build.py``); it equals
+``sort_pack_tables`` of the same rows field by field.
 
 B3 and B4, the lookup of the unfused configuration, replace the Pallas
 kernels ``hash_encode.py::_fwd_kernel`` (launched by ``_run_fwd`` at
@@ -87,6 +93,18 @@ def window_id(u: torch.Tensor, H: int) -> torch.Tensor:
     c = torch.floor(expand_warp(u) * dims).to(torch.int32)
     c = torch.minimum(c.clamp_min(0), (dims - 1).to(torch.int32))
     return (c[..., 0] * cy + c[..., 1]) * cz + c[..., 2]
+
+
+def window_keys(u, tids, H: int, n_tables: int, dead=None):
+    """Sort keys of rows u [N, 3] in [0, 1]^3 under tables (tiles) ``tids``
+    [N]: window ``tid * NW1 + wid`` of the stacked tables, or their
+    sentinel NW where ``dead`` [N] bool -> (int32 [N], NW)."""
+    NW1, _, _ = geometry(H)
+    NW = NW1 * n_tables
+    wid = window_id(u, H) + tids.to(torch.int32) * NW1
+    if dead is not None:
+        wid = torch.where(dead, torch.full_like(wid, NW), wid)
+    return wid, NW
 
 
 def slot_hash(ix, iy, iz) -> torch.Tensor:
@@ -237,16 +255,65 @@ def pack(src, pids, desc, NC, pad_wid):
 pack.launches = 0
 
 
+def pack_gather_plain(keys, perm, payload, dirs, desc, NC, pad_wid):
+    """Plain PyTorch version of B2's gather mode. keys [N] i32 sorted, perm
+    [N] i64 the payload row of each sorted row, payload [N, 4] f32 (u0 u1
+    u2, the row's index into dirs), dirs [*, 3] f32, desc as ``pack``'s ->
+    (pts, pidp) as ``pack_plain`` gives them for the sorted columns, and
+    meta [NC, SUBT, 4] i32 as ``_stream_meta`` computes it."""
+    pay = payload[perm]
+    src = torch.cat([pay[:, :3].t(), keys[None].to(torch.float32),
+                     dirs[pay[:, 3].to(torch.int64)].t()]).contiguous()
+    pts, pidp = pack_plain(src, perm.to(torch.int32), desc, NC, pad_wid)
+    return pts, pidp, _stream_meta(pts, NC, int(pad_wid))
+
+
+def _pack_gather_fn():
+    f = _build.load("pack").scanerf_pack_gather
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float] \
+        + [ctypes.c_void_p] * 4
+    return f
+
+
+def pack_gather(keys, perm, payload, dirs, desc, NC, pad_wid):
+    """B2 wrapper, gather mode: CPU tensors take ``pack_gather_plain``;
+    CUDA tensors launch the kernel. Same arguments and results as
+    ``pack_gather_plain``; the payload starts on a 16-byte boundary (the
+    kernel loads a row as one float4). Its launches count in
+    ``pack_gather.launches``, the copy mode's in ``pack.launches``."""
+    if keys.device.type == "cpu":
+        return pack_gather_plain(keys, perm, payload, dirs, desc, NC, pad_wid)
+    if keys.device.type != "cuda":
+        raise ValueError(f"unsupported device {keys.device}")
+    N, dev = keys.shape[0], keys.device
+    check_tensor("keys", keys, torch.int32, (N,), dev)
+    check_tensor("perm", perm, torch.int64, (N,), dev)
+    check_tensor("payload", payload, torch.float32, (N, 4), dev)
+    check_tensor("dirs", dirs, torch.float32, (dirs.shape[0], 3), dev)
+    check_tensor("desc", desc, torch.int32, (NC, 2), dev)
+    if payload.data_ptr() % 16:
+        raise ValueError("payload must start on a 16-byte boundary (one float4 load a row)")
+    pts = torch.empty((NC, 8, CHUNK), dtype=torch.float32, device=dev)
+    pidp = torch.empty((NC * CHUNK,), dtype=torch.int32, device=dev)
+    meta = torch.empty((NC, SUBT, 4), dtype=torch.int32, device=dev)
+    P = _build.ptr
+    err = _pack_gather_fn()(P(keys), P(perm), P(payload), P(dirs), P(desc), N, NC,
+                            float(pad_wid), P(pts), P(pidp), P(meta), _build.stream_ptr(keys))
+    _build.check(err, "scanerf_pack_gather")
+    pack_gather.launches += 1
+    return pts, pidp, meta
+
+
+pack_gather.launches = 0
+
+
 def sort_columns(x, dirs, tids, H: int, n_tables: int, dead=None):
     """Window-sort the rows: returns (src [7, N] f32 sorted columns
     u0 u1 u2 wid d0 d1 d2, pids [N] i32, ws [N] i32 sorted window ids,
     NW of the stacked tables)."""
-    NW1, _, _ = geometry(H)
-    NW = NW1 * n_tables
     u = (x + 2.0) * 0.25
-    wid = window_id(u, H) + tids.to(torch.int32) * NW1
-    if dead is not None:
-        wid = torch.where(dead, torch.full_like(wid, NW), wid)
+    wid, NW = window_keys(u, tids, H, n_tables, dead)
     ws, perm = torch.sort(wid, stable=True)
     pay = torch.cat([u, dirs], dim=1)[perm].t()  # [6, N]
     src = torch.cat([pay[0:3], ws[None].to(torch.float32), pay[3:6]]).contiguous()
@@ -290,6 +357,22 @@ def sort_pack_tables(x, dirs, tids, H: int, n_tables: int, dead=None) -> SortedS
     pts, pidp = pack(src, pids, desc, NC, NW)
     return SortedStream(pts=pts, meta=_stream_meta(pts, NC, NW), pidp=pidp,
                         visited=pop > 0)
+
+
+def sort_pack_keys(keys, payload, dirs, H: int, n_tables: int) -> SortedStream:
+    """``sort_pack_tables`` of rows that come keyed: keys [N] i32 (window
+    ``tid * NW1 + wid``, the sentinel NW for dead rows: ``window_keys``),
+    payload [N, 4] f32 (u0 u1 u2 and the row's index into dirs [*, 3]).
+    The same stream, field by field, as ``sort_pack_tables`` of the rows
+    they were built from: the same stable sort of the same keys, then B2
+    in its gather mode, which reads the payload through the permutation
+    and writes ``meta``."""
+    N = keys.shape[0]
+    ws, perm = torch.sort(keys, stable=True)
+    desc, pop = chunk_descriptors(ws, N, H, n_tables)
+    pts, pidp, meta = pack_gather(ws, perm, payload, dirs, desc, desc.shape[0],
+                                  geometry(H)[0] * n_tables)
+    return SortedStream(pts=pts, meta=meta, pidp=pidp, visited=pop > 0)
 
 
 class _SortPack(torch.autograd.Function):

@@ -9,7 +9,9 @@ inverse-z samples. Then, with the **windowed** backend:
 
 1. every fg (sample, tile) slot, up to ``max_blend_tiles`` containing
    tiles per sample picked by seam weight, and every bg (sample, exit
-   tile) slot becomes one row of a single window-sorted stream (B2,
+   tile) slot becomes one row of a single window-sorted stream (on CUDA
+   one kernel builds the rows' keys and payload,
+   ``ops/kernels/row_build.py``; then the sort and B2,
    ``ops/kernels/hash_encode.py``);
 2. the fused hash + ShallowMLP kernel decodes the stream (B7,
    ``ops/kernels/fused_render.py``) or, with ``fuse_decoder=False``, the
@@ -47,6 +49,7 @@ from scanerf_tpu_torch.ops import intersect
 from scanerf_tpu_torch.ops.hash_encode import hash_encode
 from scanerf_tpu_torch.ops.kernels import fused_render as fr
 from scanerf_tpu_torch.ops.kernels import hash_encode as hw
+from scanerf_tpu_torch.ops.kernels import row_build
 from scanerf_tpu_torch.ops.sampling import cdf_sample_from_bounds, inverse_z_vals
 from scanerf_tpu_torch.parallel import mesh as mesh_lib
 from scanerf_tpu_torch.train.checkpoint import load_tile_export
@@ -457,17 +460,27 @@ def _decode_stream(scene: MultiTileScene, stream, chunk_tile, NW: int, fuse: boo
 
 def _eval_rows(scene: MultiTileScene, X, TID, DIR, dead, fuse_decoder=True, hook=None):
     """Sorted-stream evaluation of (point, tile) rows: sort + pack (B2),
-    the stream's decode (``_decode_stream``), unsort -> [R, 4] (sigma,
-    diffuse + tint*specular) in input row order."""
-    T, H = scene.n_tiles, scene.table_size
-    stream = hw.sort_pack_tables(X, DIR, TID, H, T, dead=dead)
+    then ``_decode_rows`` -> [R, 4] (sigma, diffuse + tint*specular) in
+    input row order."""
+    stream = hw.sort_pack_tables(X, DIR, TID, scene.table_size, scene.n_tiles, dead=dead)
     _mark(hook, "sort_pack")
-    NW = (H // hw.W) * T
-    chunk_tile = torch.div(stream.meta[:, 0, 0] * hw.WB, H // hw.W,
-                           rounding_mode="floor").clamp(0, T - 1).to(torch.int32)
-    cols = _decode_stream(scene, stream, chunk_tile.contiguous(), NW, fuse_decoder)
+    return _decode_rows(scene, stream, X.shape[0], fuse_decoder, hook)
+
+
+def _chunk_tile(scene: MultiTileScene, stream) -> torch.Tensor:
+    """Each chunk's tile [NC] int32, from its block in ``meta``."""
+    nw1 = scene.table_size // hw.W
+    return torch.div(stream.meta[:, 0, 0] * hw.WB, nw1, rounding_mode="floor").clamp(
+        0, scene.n_tiles - 1).to(torch.int32).contiguous()
+
+
+def _decode_rows(scene: MultiTileScene, stream, n_rows: int, fuse_decoder=True, hook=None):
+    """The stream's decode (``_decode_stream``) and unsort -> [n_rows, 4]
+    in the order of the rows the stream was sorted from."""
+    NW = (scene.table_size // hw.W) * scene.n_tiles
+    cols = _decode_stream(scene, stream, _chunk_tile(scene, stream), NW, fuse_decoder)
     _mark(hook, "decode")
-    rows = hw.unsort_rows(cols, stream.pidp, X.shape[0])
+    rows = hw.unsort_rows(cols, stream.pidp, n_rows)
     _mark(hook, "unsort")
     return rows
 
@@ -548,19 +561,62 @@ def _bg_blend(scene, rows, rays_o, rays_d, z_bg, d_bg, bg_tiles, bg_w, bg_valid,
     return rgb_bg, depth_bg
 
 
+def _row_scene(scene: MultiTileScene) -> dict:
+    """The scene's tensors the row kernel reads, as ``row_build.build_rows``
+    takes them."""
+    return dict(tile_lut=scene.tile_lut, lut_corner=scene.lut_corner, lut_cell=scene.lut_cell,
+                lut_dims=scene.lut_dims, union_occ=scene.union_occ,
+                union_corner=scene.union_corner, union_size=scene.union_size,
+                block_corner=scene.block_corner, block_size=scene.block_size,
+                table_size=scene.table_size)
+
+
+def _stream_rows_plain(scene, rays_o, rays_d, z_vals, valid, z_bg, bg_tiles, bg_w, bg_valid,
+                       Kf: int) -> row_build.StreamRows:
+    """Plain PyTorch version of ``row_build.build_rows``: ``_fg_rows``,
+    ``_bg_rows`` and ``hash_encode.window_keys`` of their rows."""
+    row_build.check_rays(z_vals.shape[0])
+    X, TID, _, DEAD, slots = _fg_rows(scene, rays_o, rays_d, z_vals, valid, Kf)
+    Xb, TIDb, _, DEADb = _bg_rows(scene, rays_o, rays_d, z_bg, bg_tiles, bg_w, bg_valid)
+    u = (torch.cat([X, Xb]) + 2.0) * 0.25
+    keys, _ = hw.window_keys(u, torch.cat([TID, TIDb]), scene.table_size, scene.n_tiles,
+                             torch.cat([DEAD, DEADb]))
+    N, S = z_vals.shape
+    ray = torch.arange(N, dtype=torch.float32, device=u.device)
+    rid = torch.cat([ray.repeat_interleave(S).repeat(Kf),
+                     ray.repeat_interleave(z_bg.shape[1]).repeat(bg_tiles.shape[1])])
+    return row_build.StreamRows(keys=keys, payload=torch.cat([u, rid[:, None]], dim=1),
+                                slots=slots)
+
+
+def _stream_rows(scene, rays_o, rays_d, z_vals, valid, z_bg, bg_tiles, bg_w, bg_valid,
+                 Kf: int) -> row_build.StreamRows:
+    """A chunk's stream rows (``row_build.StreamRows``): CPU tensors take
+    ``_stream_rows_plain``; CUDA tensors launch the row kernel."""
+    if rays_o.device.type == "cpu":
+        return _stream_rows_plain(scene, rays_o, rays_d, z_vals, valid, z_bg, bg_tiles, bg_w,
+                                  bg_valid, Kf)
+    return row_build.build_rows(rays_o, rays_d, z_vals, valid, z_bg, bg_tiles, bg_w, bg_valid,
+                                Kf, **_row_scene(scene))
+
+
 def _render_windowed(scene, rays_o, rays_d, z_vals, dists, valid, bg_tiles,
                      bg_w, z_bg, d_bg, bg_valid, invalid_underground,
                      max_blend_tiles=MAX_PTS_BLOCKS, fuse_decoder=True, hook=None):
-    """Capped-slot evaluation: one sorted stream of all fg and bg slots."""
+    """Capped-slot evaluation: one sorted stream of all fg and bg slots.
+    The rows' keys, payload and fg slot tables (``_stream_rows``), their
+    sort and B2's gather (``hash_encode.sort_pack_keys``), the decode."""
     Kf = min(max_blend_tiles, scene.n_tiles)
     dnorm = torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
-    fg = _fg_rows(scene, rays_o, rays_d, z_vals, valid, Kf)
-    bg = _bg_rows(scene, rays_o, rays_d, z_bg, bg_tiles, bg_w, bg_valid)
+    built = _stream_rows(scene, rays_o, rays_d, z_vals, valid, z_bg, bg_tiles, bg_w, bg_valid,
+                         Kf)
     _mark(hook, "slots")
-    rows = _eval_rows(scene, *(torch.cat([f, b]) for f, b in zip(fg[:4], bg)),
-                      fuse_decoder, hook)
-    n_fg = fg[0].shape[0]
-    alpha, color = _fg_blend(rows[:n_fg], fg[4], dists, dnorm, valid)
+    stream = hw.sort_pack_keys(built.keys, built.payload, rays_d, scene.table_size,
+                               scene.n_tiles)
+    _mark(hook, "sort_pack")
+    rows = _decode_rows(scene, stream, built.keys.shape[0], fuse_decoder, hook)
+    n_fg = Kf * z_vals.numel()
+    alpha, color = _fg_blend(rows[:n_fg], built.slots, dists, dnorm, valid)
     rgb_fg, depth_fg, T_left = _composite_premult(alpha, color, z_vals)
     rgb_bg, depth_bg = _bg_blend(scene, rows[n_fg:], rays_o, rays_d, z_bg, d_bg, bg_tiles,
                                  bg_w, bg_valid, invalid_underground)

@@ -12,6 +12,7 @@ depth 2e-4, T_left 2e-5 -- f32 sums taken in other orders (feature
 accumulation, matmuls, per-slot blend), nothing looser.
 """
 
+import functools
 import os
 
 import jax
@@ -22,8 +23,10 @@ import torch
 
 from scanerf_tpu.models import decoder as jdec
 from scanerf_tpu.ops.hash_encode import make_level_resolutions
+from scanerf_tpu.ops.pallas import hash_encode as jhw
 from scanerf_tpu.render import renderer as jr
 from scanerf_tpu_torch import convert
+from scanerf_tpu_torch.ops import sampling as tsampling
 from scanerf_tpu_torch.render import renderer as tr
 
 L = 16
@@ -108,6 +111,86 @@ def test_fg_slots_match_jax(T):
         np.testing.assert_array_equal(np.asarray(ref[3]), out[3].numpy())
         np.testing.assert_array_equal(np.asarray(ref[0])[m], out[0].numpy()[m])
         np.testing.assert_allclose(np.asarray(ref[1]), out[1].numpy(), rtol=1e-6, atol=1e-7)
+
+
+@functools.partial(jax.jit, static_argnums=(9, 10))
+def _j_stream_rows(js, rays_o, rays_d, z_vals, valid, z_bg, bg_tiles, bg_w, bg_valid, Kf, H):
+    """The JAX package's windowed rows (its ``_render_windowed``'s X, TID
+    and DEAD, renderer.py:733-790) and their window keys as its
+    ``_sort_pack_sorted`` computes them -> (keys, u, w_fg, m_any, m_eval)."""
+    T = js.block_corner.shape[0]
+    NW1 = jhw.geometry(H)[0]
+    N, S = z_vals.shape
+    Sb, Kb = z_bg.shape[1], bg_tiles.shape[1]
+    pts = rays_o[:, None, :] + z_vals[..., None] * rays_d[:, None, :]
+    tags, w_fg, m_any, m_eval = jr._fg_slots_lut(js, pts, Kf)
+    x_fg = jr._contract_fg(js.block_corner[tags], js.block_size[tags], pts[:, :, None, :])
+    x_fg = jnp.where(m_any[..., None], x_fg, 0.0)
+    pts_bg = rays_o[:, None, :] + z_bg[..., None] * rays_d[:, None, :]
+    x_bg = jr._contract_bg(js.block_corner[bg_tiles][:, None], js.block_size[bg_tiles][:, None],
+                           pts_bg[:, :, None, :])
+    bg_used = (bg_w > 0.0)[:, None, :]
+    x_bg = jnp.where(jnp.broadcast_to(bg_used[..., None], x_bg.shape), x_bg, 0.0)
+    X = jnp.concatenate([x_fg.transpose(2, 0, 1, 3).reshape(-1, 3),
+                         x_bg.transpose(2, 0, 1, 3).reshape(-1, 3)])
+    TID = jnp.concatenate([tags.transpose(2, 0, 1).reshape(-1),
+                           jnp.broadcast_to(bg_tiles[:, None, :], (N, Sb, Kb))
+                           .transpose(2, 0, 1).reshape(-1)])
+    DEAD = jnp.concatenate([
+        (~(m_eval & valid[:, None, None])).transpose(2, 0, 1).reshape(-1),
+        jnp.broadcast_to(~(bg_used & bg_valid[:, None, None]), (N, Sb, Kb))
+        .transpose(2, 0, 1).reshape(-1)])
+    u = (X + 2.0) * 0.25
+    wid = jhw.window_id(u, H) + TID.astype(jnp.int32) * NW1
+    return jnp.where(DEAD, NW1 * T, wid), u, w_fg, m_any, m_eval
+
+
+def chunk_inputs(scene, n_rays, seed, S=12, Sb=6, M=32):
+    """Rays over the tiles (some meet no tile) and the render's sampling
+    and exit slots for them on the CPU: the inputs of the stream rows."""
+    T = scene.n_tiles
+    rng = np.random.RandomState(seed)
+    o = (rng.randn(n_rays, 3) * 0.3).astype(np.float32)
+    o[:, 0] += rng.uniform(0, 1.5 * (T - 1), n_rays).astype(np.float32)
+    d = rng.randn(n_rays, 3).astype(np.float32)
+    o[: n_rays // 8] = [0.0, 9.0, 0.0]  # above the tiles, looking up: they meet no tile
+    d[: n_rays // 8, 1] = np.abs(d[: n_rays // 8, 1]) + 0.5
+    rays_o, rays_d = torch.from_numpy(o), torch.from_numpy(d)
+    z_vals, _, valid = tr._sample_union(scene, rays_o, rays_d, S, M)
+    bg_tiles, bg_w, far, bg_valid = tr._exit_slots(scene, rays_o, rays_d, min(4, T))
+    z_bg, _ = tsampling.inverse_z_vals(far, Sb)
+    return rays_o, rays_d, z_vals, valid, z_bg, bg_tiles, bg_w, bg_valid
+
+
+@pytest.mark.parametrize("T,n_rays", [(2, 40), (4, 32), (8, 24)])
+def test_stream_rows_match_jax(T, n_rays):
+    """The render's plain row composition (``renderer._stream_rows_plain``:
+    ``_fg_rows``, ``_bg_rows``, ``window_keys``), which the row kernel is
+    held to on the card, gives the JAX package's rows: the same sort keys
+    (dead rows on the sentinel) and u of every row, and its fg slot
+    tables (u and the weights within f32 rounding)."""
+    a = scene_arrays(T=T, seed=20 + T)
+    js = jax_scene(a)
+    ts = convert.scene(js, device="cpu")
+    inputs = chunk_inputs(ts, n_rays, seed=30 + T)
+    _, _, _, valid, _, _, bg_w, bg_valid = inputs
+    assert not bool(valid.all()) and not bool(bg_valid.all()) and bool((bg_w == 0).any())
+    Kf = min(tr.MAX_PTS_BLOCKS, T)
+    got = tr._stream_rows_plain(ts, *inputs, Kf)
+    ref = _j_stream_rows(js, *(jnp.asarray(t.numpy()) for t in inputs), Kf, ts.table_size)
+    keys, u, w_fg, m_any, m_eval = (np.asarray(r) for r in ref)
+    NW = ts.table_size // 512 * T
+    assert 0 < int((keys < NW).sum()) < keys.size  # live and dead rows both
+    np.testing.assert_array_equal(keys, got.keys.numpy())
+    # jitted XLA fuses (p - c) / s * 4 - 2 and (x + 2) * 0.25 and rounds
+    # them otherwise; the port rounds each op as PyTorch does: u within 2
+    # ulps of 1 (the keys above are equal all the same)
+    np.testing.assert_allclose(u, got.payload[:, :3].numpy(), rtol=0, atol=2.4e-7)
+    np.testing.assert_array_equal(m_any, got.slots[1].numpy())
+    np.testing.assert_array_equal(m_eval, got.slots[2].numpy())
+    # XLA also fuses the sample point o + z * d into one rounding, which
+    # moves the seam weight's cancelling 0.5 - |u - 0.5| by a few ulps
+    np.testing.assert_allclose(w_fg, got.slots[0].numpy(), rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("T,n_rays,underground", [(2, 24, False), (4, 16, True)])
